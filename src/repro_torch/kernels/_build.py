@@ -1,0 +1,96 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/*.cu`` file is compiled by ``nvcc`` into its own shared library
+with a plain C interface for ``sm_90a`` and loaded with ``ctypes``.  The
+build happens at first use, from the sources in this package only, into
+``build/repro_torch/`` at the root of the checkout (listed in
+``.gitignore``).  A library is named by a hash of its source and flags, so an
+edited source is rebuilt.  Nothing here runs at import: the CPU tests import
+every module and have no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# kernel name -> (source file, function that sets the ctypes signatures)
+_KERNELS: dict[str, tuple[str, object]] = {}
+# kernel name -> loaded library / nvcc's -Xptxas -v report
+_LIBS: dict[str, ctypes.CDLL] = {}
+BUILD_LOGS: dict[str, str] = {}
+
+
+def register(name: str, source: str, set_argtypes) -> None:
+    _KERNELS[name] = (source, set_argtypes)
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit's nvcc (set CUDA_HOME)")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / _KERNELS[name][0]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build(names=None) -> dict[str, str]:
+    """Compile the named kernels (all registered ones by default) with one
+    ``nvcc`` each, all started together.  Returns each kernel's ptxas
+    report; raises if any build fails."""
+    names = list(_KERNELS) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            BUILD_LOGS.setdefault(name, f"{out.name}: already built")
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC / _KERNELS[name][0])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOGS[name] = log
+        if proc.returncode:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return {n: BUILD_LOGS[n] for n in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The named kernel's library, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_target(name)))
+        _KERNELS[name][1](lib)
+        lib.cuda_error_string.argtypes = [ctypes.c_int]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def cuda_error_string(lib: ctypes.CDLL, err: int) -> str:
+    return f"cudaError {err}: {lib.cuda_error_string(err).decode()}"

@@ -1,0 +1,209 @@
+"""Divergence-aware flash attention: the CUDA kernel's launcher, its tile
+schedule, and its plain-torch twin.
+
+Port of ``repro.kernels.flash_attention``.  The (q-block, kv-block) grid is
+an active-mask grid; each tile is EMPTY (never visited), PARTIAL (computed
+under the causal / window / kv-tail mask) or FULL (computed unmasked).  The
+kernel itself is ``csrc/flash_attention.cu``: one CTA per (q-tile, head,
+batch) walks the kv tiles of :func:`kv_tile_range`, which are exactly the
+non-EMPTY tiles of :func:`_tile_class`.  :func:`flash_attention_plain` walks
+the same schedule in plain torch; the CPU path and the on-card check use it.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+DEFAULT_BQ = 128
+DEFAULT_BK = 128
+NEG_INF = -1e30
+
+# the kernel keeps one q row per thread and a kv tile in shared memory
+_HEAD_DIMS = (8, 16, 32, 64, 128)
+_MAX_BQ = 128
+_MAX_SMEM = 232_448
+_CHUNK = 16        # keys per online-softmax step in the kernel (csrc CH)
+
+
+def _tile_class(qs, ks, bq, bk, *, causal: bool, window: int, kv_len: int):
+    """Classify tile [qs:qs+bq) x [ks:ks+bk).  Returns (empty, full)."""
+    q_min, q_max = qs, qs + bq - 1
+    k_min, k_max = ks, ks + bk - 1
+    empty, full = False, True
+    if causal:
+        empty |= k_min > q_max                     # entirely in the future
+        full &= k_max <= q_min                     # all pairs past-or-diag
+    if window > 0:
+        empty |= k_max < q_min - window + 1        # entirely older than window
+        full &= k_min >= q_max - window + 1        # all pairs inside window
+    # kv padding tail
+    empty |= k_min >= kv_len
+    full &= k_max < kv_len
+    return empty, full
+
+
+def kv_tile_range(qs: int, bq: int, bk: int, nk: int, *, causal: bool,
+                  window: int, kv_len: int) -> tuple[int, int]:
+    """[lo, hi) of the kv tiles a q tile visits: the first tile not EMPTY
+    under the window, up to the last not EMPTY under causal and kv_len.
+    Mirrored line for line by ``kv_tile_range`` in the CUDA source."""
+    lo = max(0, qs - window + 1) // bk if window > 0 else 0
+    hi = min(nk, -(-kv_len // bk))
+    if causal:
+        hi = min(hi, (qs + bq - 1) // bk + 1)
+    return lo, hi
+
+
+def tile_stats(Sq: int, Sk: int, *, causal: bool, window: int,
+               kv_len: int | None = None, bq: int = DEFAULT_BQ,
+               bk: int = DEFAULT_BK) -> dict:
+    """Schedule-time tile census of the mask grid (how much work the
+    EMPTY-tile skipping saves)."""
+    kv_len = Sk if kv_len is None else kv_len
+    nq, nk = -(-Sq // bq), -(-Sk // bk)
+    empty = full = partial = 0
+    for i in range(nq):
+        for j in range(nk):
+            e, f = _tile_class(i * bq, j * bk, bq, bk, causal=causal,
+                               window=window, kv_len=kv_len)
+            if e:
+                empty += 1
+            elif f:
+                full += 1
+            else:
+                partial += 1
+    total = nq * nk
+    return {"total": total, "empty": empty, "full": full, "partial": partial,
+            "flops_kept_frac": (full + partial) / total,
+            "mask_overhead_frac": partial / max(1, full + partial)}
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          bq: int = DEFAULT_BQ, bk: int = DEFAULT_BK):
+    """The kernel's function in plain torch, on its tile schedule.
+
+    q: [B, Sq, H, hd]; k, v: [B, Sk, K, hd] (GQA).  m, l and acc are f32 and
+    carried across the kv tiles of each q tile; the result is in q's dtype.
+    """
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    kv_len = Sk
+    nk = -(-Sk // bk)
+    scale = hd ** -0.5
+    qf = q.float().reshape(B, Sq, K, G, hd)
+    kf, vf = k.float(), v.float()
+    out = torch.empty((B, Sq, K, G, hd), dtype=torch.float32, device=q.device)
+    for qs in range(0, Sq, bq):
+        qt = qf[:, qs:qs + bq]
+        n_q = qt.shape[1]
+        m = torch.full((B, K, G, n_q), NEG_INF, device=q.device)
+        l = torch.zeros((B, K, G, n_q), device=q.device)
+        acc = torch.zeros((B, K, G, n_q, hd), device=q.device)
+        lo, hi = kv_tile_range(qs, bq, bk, nk, causal=causal, window=window,
+                               kv_len=kv_len)
+        for j in range(lo, hi):
+            ks = j * bk
+            kt, vt = kf[:, ks:ks + bk], vf[:, ks:ks + bk]
+            s = torch.einsum("bqkgh,bskh->bkgqs", qt, kt) * scale
+            _, full = _tile_class(qs, ks, bq, bk, causal=causal,
+                                  window=window, kv_len=kv_len)
+            if not full:
+                qi = qs + torch.arange(n_q, device=q.device)[:, None]
+                kj = ks + torch.arange(kt.shape[1], device=q.device)[None, :]
+                live = kj < kv_len
+                if causal:
+                    live = live & (qi >= kj)
+                if window > 0:
+                    live = live & (qi - kj < window)
+                s = torch.where(live, s, torch.tensor(NEG_INF, device=q.device))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("bkgqs,bskh->bkgqh",
+                                                        p, vt)
+            m = m_new
+        o = acc / torch.clamp_min(l, 1e-30)[..., None]
+        out[:, qs:qs + n_q] = o.permute(0, 3, 1, 2, 4)
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _smem_bytes(bk: int, hd: int) -> int:
+    rows = -(-bk // _CHUNK) * _CHUNK
+    return 2 * rows * hd * 4
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool, window: int, bq: int,
+                         bk: int):
+    """Launch the CUDA kernel on BSHD tensors, read through their strides.
+
+    Raises on anything the kernel does not take; never falls back."""
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("flash_attention_cuda needs q, k, v on one CUDA "
+                         f"device, got {q.device}, {k.device}, {v.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share a dtype in {list(_DTYPES)}, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or H % K:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
+                         "form a GQA attention")
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {_HEAD_DIMS}")
+    if not (1 <= bq <= _MAX_BQ) or bk < 1 or _smem_bytes(bk, hd) > _MAX_SMEM:
+        raise ValueError(f"tile {bq}x{bk} out of range for head_dim {hd}")
+    if min(q.stride(3), k.stride(3), v.stride(3)) != 1:
+        raise ValueError("the head dimension must be contiguous")
+    o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    lib = _build.load("flash_attention")
+    ptr = ctypes.c_void_p
+    i64 = ctypes.c_int64
+    err = lib.flash_attention_fwd(
+        ptr(q.data_ptr()), ptr(k.data_ptr()), ptr(v.data_ptr()),
+        ptr(o.data_ptr()), _DTYPES[q.dtype], B, Sq, Sk, H, K, hd,
+        *(i64(s) for t in (q, k, v, o) for s in t.stride()[:3]),
+        int(causal), int(window), bq, bk,
+        ptr(torch.cuda.current_stream(q.device).cuda_stream))
+    if err:
+        raise RuntimeError(f"flash_attention kernel launch failed: "
+                           f"{_build.cuda_error_string(lib, err)}")
+    return o
+
+
+def _argtypes(lib):
+    i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
+    lib.flash_attention_fwd.argtypes = (
+        [ptr] * 4 + [i32] * 7 + [i64] * 12 + [i32] * 4 + [ptr])
+    lib.flash_attention_fwd.restype = i32
+
+
+_build.register("flash_attention", "flash_attention.cu", _argtypes)
+
+
+def attention_flops(B: int, Sq: int, Sk: int, H: int, hd: int, *,
+                    causal: bool, window: int) -> int:
+    """FLOPs the masked attention needs: 4*hd per live (q, k) pair (q.k and
+    p.v), counted over the live pairs of this mask, not the tiles visited."""
+    live = 0
+    for i in range(Sq):
+        lo = max(0, i - window + 1) if window > 0 else 0
+        hi = min(Sk, i + 1) if causal else Sk
+        live += max(0, hi - lo)
+    return 4 * hd * B * H * live
+
+
+def attention_bytes(q, k, v) -> int:
+    """Bytes the attention must move: q, k, v read once, o written once."""
+    return (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+

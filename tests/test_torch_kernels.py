@@ -1,0 +1,114 @@
+"""The port's flash attention against the JAX package's Pallas kernel (run in
+interpret mode) and its dense oracle, plus the tile schedule.
+
+Inputs come from numpy with a fixed seed and go to both packages.  The
+machine with the card has no JAX: there this module skips as a whole."""
+import numpy as np
+import pytest
+import torch
+
+jnp = pytest.importorskip("jax.numpy")
+
+from repro.kernels import flash_attention as jfa
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+
+def _qkv(seed, B, S, H, Kh, hd):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((B, S, n, hd)).astype(np.float32)
+                 for n in (H, Kh, Kh))
+
+
+def _torch(x, dtype=torch.float32):
+    return torch.from_numpy(x).to(dtype)
+
+
+SHAPES = [
+    (64, 4, 4, 32, True, 0),        # causal full
+    (64, 4, 2, 32, True, 0),        # GQA
+    (64, 4, 1, 32, True, 16),       # MQA + window (SWA)
+    (96, 2, 2, 64, True, 32),       # non-multiple of block, window
+    (64, 2, 2, 32, False, 0),       # encoder (bidirectional)
+]
+
+
+@pytest.mark.parametrize("S,H,Kh,hd,causal,window", SHAPES)
+def test_flash_attention_matches_jax(S, H, Kh, hd, causal, window):
+    q, k, v = _qkv(S + H + Kh + window, 2, S, H, Kh, hd)
+    want_kernel = np.asarray(jops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, bq=32, bk=32, interpret=True))
+    want_ref = np.asarray(jref.attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window))
+    tq, tk, tv = (_torch(x) for x in (q, k, v))
+    outs = {
+        "ops": tops.flash_attention(tq, tk, tv, causal=causal, window=window,
+                                    bq=32, bk=32),
+        "plain": tfa.flash_attention_plain(tq, tk, tv, causal=causal,
+                                           window=window, bq=32, bk=32),
+        "ref": tref.attention_ref(tq, tk, tv, causal=causal, window=window),
+    }
+    for name, out in outs.items():
+        for want in (want_kernel, want_ref):
+            np.testing.assert_allclose(out.numpy(), want, rtol=2e-5,
+                                       atol=2e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
+def test_flash_attention_dtypes(dtype, tol):
+    q, k, v = _qkv(1, 1, 64, 4, 2, 32)
+    jq, jk, jv = (jnp.asarray(x, getattr(jnp, dtype)) for x in (q, k, v))
+    want = jops.flash_attention(jq, jk, jv, causal=True, bq=32, bk=32,
+                                interpret=True)
+    want_ref = jref.attention_ref(jq, jk, jv, causal=True)
+    tq, tk, tv = (_torch(x, getattr(torch, dtype)) for x in (q, k, v))
+    out = tops.flash_attention(tq, tk, tv, causal=True, bq=32, bk=32)
+    assert out.dtype == getattr(torch, dtype)
+    for w in (want, want_ref):
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(w, np.float32),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window,bq,bk", [
+    (1024, 1024, True, 0, 128, 128),
+    (4096, 4096, True, 512, 128, 128),
+    (512, 512, False, 0, 128, 128),
+    (96, 96, True, 32, 32, 32),
+    (100, 130, False, 24, 16, 32),
+    (2048, 2048, True, 0, 128, 128),
+])
+def test_tile_stats_equal_jax(Sq, Sk, causal, window, bq, bk):
+    kw = dict(causal=causal, window=window, bq=bq, bk=bk)
+    assert tfa.tile_stats(Sq, Sk, **kw) == jfa.tile_stats(Sq, Sk, **kw)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [0, 1, 7, 32, 100])
+def test_kv_tile_range_is_the_non_empty_tiles(causal, window):
+    """The kernel visits exactly the tiles _tile_class does not call EMPTY."""
+    for bq, bk, Sk in [(32, 32, 96), (16, 32, 100), (8, 8, 8), (128, 64, 300)]:
+        nk = -(-Sk // bk)
+        for qs in range(0, Sk + bq, bq):
+            lo, hi = tfa.kv_tile_range(qs, bq, bk, nk, causal=causal,
+                                       window=window, kv_len=Sk)
+            kept = [j for j in range(nk) if not tfa._tile_class(
+                qs, j * bk, bq, bk, causal=causal, window=window,
+                kv_len=Sk)[0]]
+            assert list(range(lo, hi)) == kept, (bq, bk, Sk, qs)
+
+
+def test_attention_flops_counts_live_pairs():
+    # causal: S(S+1)/2 live pairs; window w: min(i+1, w) per row
+    assert tfa.attention_flops(1, 8, 8, 1, 4, causal=True, window=0) \
+        == 4 * 4 * 36
+    assert tfa.attention_flops(2, 8, 8, 3, 4, causal=True, window=2) \
+        == 4 * 4 * 2 * 3 * (1 + 2 * 7)
+    assert tfa.attention_flops(1, 8, 8, 1, 4, causal=False, window=0) \
+        == 4 * 4 * 64
+
