@@ -5,14 +5,26 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel of the port from the checkout's sources, holds
-each against its plain PyTorch version on the card, drives the port's main
-path at the full width of llama3.2-1b (a bf16 prefill of 4 x 2048 tokens
-through the flash-attention kernel, then ``serve`` answering 4 requests),
-times the kernel beside its bound, its plain version and PyTorch's own
-attention, and prints one JSON line of kernel numbers and, last, one JSON
-line naming the device.  Any failed phase, or no GPU, exits non-zero before
-that last line.
+It builds every CUDA kernel of the port from the checkout's sources (flash
+attention K3, the RG-LRU scan K4, the RWKV-6 scan K5), holds each against
+its plain PyTorch version on the card, and drives the port's main paths at
+full width, with random weights drawn from a seed:
+
+- llama3.2-1b: a bf16 prefill of 4 x 2048 tokens through K3 (hd 64);
+- recurrentgemma-2b: a bf16 prefill of 4 x 2048 through K3 (hd 256), held
+  against the reference-attention prefill, and layer 0's RG-LRU with
+  ``use_kernel=True`` through K4, held against its plain branch;
+- rwkv6-3b: a bf16 prefill of 4 x 2048 through the per-token wkv scan, held
+  against the chunked form, and layer 0's time mix with ``use_kernel=True``
+  through K5, held against the scan;
+- ``serve`` of 4 requests on each of the three models, in f32.
+
+Every kernel's launch count is set to 0 just before each path and read just
+after it; a path that launches a kernel another number of times than it
+should fails the run.  Then it times each kernel beside its bound, its plain
+version and, where one exists, one PyTorch call computing the same function,
+prints one JSON line of kernel numbers and, last, one JSON line naming the
+device.  Any failed phase, or no GPU, exits non-zero before that last line.
 """
 from __future__ import annotations
 
@@ -32,11 +44,22 @@ SEED = 0
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
-# llama3.2-1b attention at the prefill shape: B, S, H, K, hd
 PREFILL_B, PREFILL_S = 4, 2048
+RAGGED_S = 1000          # a sequence length no kernel tile divides
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-# last-position logits, flash vs reference prefill, both bf16 end to end
-PREFILL_LOGITS_TOL = 5e-2
+# K4 rounds each product and sum as its plain twin does (bit-equal
+# expected); K5 carries the same state bit for bit and sums out over k in
+# another order.  These are the JAX package's own kernel tolerances.
+RGLRU_TOL, RWKV_TOL = 1e-5, 1e-4
+# last-position logits of two prefills of one model (flash vs reference
+# attention in bf16; per-token vs chunked wkv in f32), relative to the
+# largest logit.  rwkv6-3b is compared in f32: through its 32 bf16 layers
+# one rounding flip grows to ~10% of the logits whichever form is right.
+PREFILL_LOGITS_RTOL = {torch.bfloat16: 5e-2, torch.float32: 1e-3}
+# a layer with use_kernel=True against its plain branch, f32, on layer 0's
+# weights: the log-depth RG-LRU scan and the per-token wkv scan round in
+# other orders than the kernels
+LAYER_TOL = 1e-4
 
 
 def phase(name: str, **fields) -> None:
@@ -64,6 +87,18 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def max_err(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
+def bound(flops: int, nbytes: int, dtype) -> tuple[float, str]:
+    """The least time (ms) the card could take, and what bounds it."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs only "
@@ -76,13 +111,41 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rw
     from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import prefill, prefill_config
     from repro_torch.models import Transformer, init_params, model_struct
+    from repro_torch.models import recurrent
+    from repro_torch.models.base import Params, tree_map
+    from repro_torch.models.layers import embed, rmsnorm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    counters = {"flash_attention": ops.flash_attention,
+                "rglru_scan": ops.rglru_scan, "rwkv6_scan": ops.rwkv6_scan}
+    launches = {name: {} for name in counters}     # kernel -> path -> count
+
+    def run_path(path: str, fn, expect: dict):
+        """Drive one main path with every launch count set to 0 just before
+        it; read the counts just after and hold them to ``expect``.
+        Returns (fn's result, wall seconds, the counts)."""
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {name: c.launches for name, c in counters.items()}
+        for name, n in got.items():
+            if n:
+                launches[name][path] = n
+            check(n == expect.get(name, 0),
+                  f"{path} launched {name} {n} times, expected "
+                  f"{expect.get(name, 0)}")
+        return out, wall, got
 
     # 1. device ------------------------------------------------------------
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -94,7 +157,7 @@ def main() -> int:
           cuda=torch.version.cuda)
     print(smi, flush=True)
 
-    # 2. build -------------------------------------------------------------
+    # 2. build: one nvcc per kernel, all started together --------------------
     t0 = time.perf_counter()
     logs = _build.build()
     phase("build", kernels=",".join(logs),
@@ -104,133 +167,331 @@ def main() -> int:
             if "entry function" in line or "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    # 3. kernel check: kernel vs plain on the same inputs --------------------
+    # 3. kernel check: each kernel vs its plain twin on the same inputs -----
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
-    def qkv(B, S, H, K, hd, dtype):
-        return tuple(torch.randn((B, S, n, hd), generator=gen, device=dev)
-                     .to(dtype) for n in (H, K, K))
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    cases = [
-        ("llama_causal_f32", 4, 2048, 32, 8, 64, True, 0, torch.float32),
-        ("llama_causal_bf16", 4, 2048, 32, 8, 64, True, 0, torch.bfloat16),
-        ("window_256", 2, 1024, 32, 8, 64, True, 256, torch.bfloat16),
-        ("non_causal", 2, 512, 32, 8, 64, False, 0, torch.float32),
-        ("ragged_1000", 2, 1000, 32, 8, 64, True, 0, torch.float32),
-    ]
+    def qkv(B, S, H, K, hd, dtype):
+        return tuple(randn(B, S, n, hd, dtype=dtype) for n in (H, K, K))
+
+    def rglru_inputs(B, S, W):
+        a = torch.rand((B, S, W), generator=gen, device=dev) * 0.499 + 0.5
+        return a, randn(B, S, W)
+
+    def rwkv_inputs(B, S, H, hd):
+        r, k, v = (randn(B, S, H, hd) for _ in range(3))
+        # the model's decay form: w = exp(-exp(z)), z clipped to [-8, 4]
+        w = torch.exp(-torch.exp(randn(B, S, H, hd).clamp(-8.0, 4.0)))
+        return r, k, v, w, randn(H, hd) * 0.1
+
+    lcfg, gcfg, rcfg = (get_config(a) for a in
+                        ("llama3.2-1b", "recurrentgemma-2b", "rwkv6-3b"))
+    B, S = PREFILL_B, PREFILL_S
+    llama_attn = (lcfg.n_heads, lcfg.n_kv_heads, lcfg.hd)
+    rgemma_attn = (gcfg.n_heads, gcfg.n_kv_heads, gcfg.hd)
+    rwkv_heads = (rcfg.d_model // rcfg.rwkv_head_dim, rcfg.rwkv_head_dim)
     errs = {}
-    for name, B, S, H, K, hd, causal, window, dtype in cases:
+    attn_cases = [
+        ("llama_causal_f32", B, S, *llama_attn, True, 0, torch.float32),
+        ("llama_causal_bf16", B, S, *llama_attn, True, 0, torch.bfloat16),
+        ("window_s/8", 2, S // 2, *llama_attn, True, S // 8, torch.bfloat16),
+        ("non_causal", 2, S // 4, *llama_attn, False, 0, torch.float32),
+        ("ragged", 2, RAGGED_S, *llama_attn, True, 0, torch.float32),
+        ("rgemma_bf16", B, S, *rgemma_attn, True, gcfg.window_size,
+         torch.bfloat16),
+        ("rgemma_ragged_f32", 1, RAGGED_S, *rgemma_attn, True,
+         RAGGED_S * 3 // 10, torch.float32),
+    ]
+    for name, B, S, H, K, hd, causal, window, dtype in attn_cases:
         q, k, v = qkv(B, S, H, K, hd, dtype)
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
-        blk = min(fa.DEFAULT_BQ, max(8, S))
+        bq, bk = fa.tiles(S, S, hd)
         want = fa.flash_attention_plain(q, k, v, causal=causal,
-                                        window=window, bq=blk, bk=blk)
+                                        window=window, bq=bq, bk=bk)
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        errs[name] = err
+        err = errs[name] = max_err(got, want)
         tol = TOLERANCE[dtype]
         phase("kernel_check", kernel="flash_attention", case=name,
               shape=f"B{B}xS{S}xH{H}xK{K}xhd{hd}", dtype=str(dtype)[6:],
-              causal=causal, window=window, max_abs_err=f"{err:.3e}",
-              tol=tol)
+              causal=causal, window=window, tiles=f"{bq}x{bk}",
+              max_abs_err=f"{err:.3e}", tol=tol)
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
         check(err <= tol, f"{name}: max abs err {err} > {tol}")
         del q, k, v, got, want
 
-    # 4. prefill: the main path through the kernel --------------------------
+    for name, (B, S, W) in [
+            ("rglru_prefill", (PREFILL_B, PREFILL_S, gcfg.lru_width)),
+            ("rglru_ragged", (PREFILL_B, RAGGED_S, gcfg.lru_width - 60))]:
+        a, b = rglru_inputs(B, S, W)
+        got = ops.rglru_scan(a, b)
+        want = rg.rglru_scan_plain(a, b)
+        torch.cuda.synchronize()
+        err = errs[name] = max_err(got, want)
+        phase("kernel_check", kernel="rglru_scan", case=name,
+              shape=f"B{B}xS{S}xW{W}", dtype="float32",
+              max_abs_err=f"{err:.3e}", tol=RGLRU_TOL,
+              bit_equal=bool(torch.equal(got, want)))
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        check(err <= RGLRU_TOL, f"{name}: max abs err {err} > {RGLRU_TOL}")
+        del a, b, got, want
+
+    for name, (B, S, H, hd) in [
+            ("rwkv_prefill", (PREFILL_B, PREFILL_S, *rwkv_heads)),
+            ("rwkv_ragged", (PREFILL_B, RAGGED_S, *rwkv_heads))]:
+        ins = rwkv_inputs(B, S, H, hd)
+        out, s_last = ops.rwkv6_scan(*ins)
+        want, s_want = rw.rwkv6_scan_plain(*ins)
+        torch.cuda.synchronize()
+        out_err, s_err = max_err(out, want), max_err(s_last, s_want)
+        err = errs[name] = max(out_err, s_err)
+        phase("kernel_check", kernel="rwkv6_scan", case=name,
+              shape=f"B{B}xS{S}xH{H}xhd{hd}", dtype="float32",
+              out_max_abs_err=f"{out_err:.3e}",
+              s_last_max_abs_err=f"{s_err:.3e}",
+              out_max_abs=f"{want.abs().max().item():.3e}", tol=RWKV_TOL)
+        check(bool(torch.isfinite(out).all() and torch.isfinite(s_last).all()),
+              f"{name}: non-finite output")
+        check(err <= RWKV_TOL, f"{name}: max abs err {err} > {RWKV_TOL}")
+        del ins, out, s_last, want, s_want
+
+    # 4. full-width bf16 prefills: the main paths through K3 ----------------
+    tokens = torch.randint(0, 65536, (PREFILL_B, PREFILL_S), generator=gen,
+                           device=dev)
+
+    def last_logits(model, cfg, batch):
+        logits, _ = prefill(model, cfg, batch)
+        return logits[:, -1].float()
+
+    def prefill_phase(arch, cfg, other_cfg, expect, check_dtype):
+        """Warm up, drive the bf16 prefill as a main path, and hold the
+        last-position logits of ``cfg``'s prefill against ``other_cfg``'s
+        on the same weights, in ``check_dtype``.  Returns the model (bf16)
+        and the main path's caches."""
+        params = init_params(model_struct(cfg), gen, dtype=torch.bfloat16,
+                             device=dev)
+        model = Transformer(cfg, params)
+        batch = {"tokens": tokens % cfg.vocab_size}
+        prefill(model, cfg, batch)      # warm-up: cuBLAS plans, allocator
+        (logits, caches), wall, got = run_path(
+            f"{arch} prefill", lambda: prefill(model, cfg, batch), expect)
+        check(logits.shape == (PREFILL_B, PREFILL_S, cfg.vocab_size),
+              f"{arch} prefill logits shape {tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits[:, -1]).all()),
+              f"{arch}: logits not finite")
+        last = logits[:, -1].float()
+        del logits
+        check_model = model
+        if check_dtype != torch.bfloat16:
+            check_model = Transformer(cfg, tree_map(
+                lambda t: t.to(check_dtype), params))
+            last = last_logits(check_model, cfg, batch)
+        ref_last = last_logits(check_model, other_cfg, batch)
+        del check_model
+        err, ref_max = max_err(last, ref_last), ref_last.abs().max().item()
+        rtol = PREFILL_LOGITS_RTOL[check_dtype]
+        phase("prefill", arch=arch, params="bf16",
+              tokens=f"{PREFILL_B}x{PREFILL_S}", launches=got,
+              wall_s=f"{wall:.4f}",
+              tok_per_s=f"{PREFILL_B * PREFILL_S / wall:.1f}",
+              check_dtype=str(check_dtype)[6:],
+              last_logits_max_abs_err=f"{err:.3e}",
+              ref_logits_max_abs=f"{ref_max:.3e}", rtol=rtol)
+        check(err <= rtol * ref_max,
+              f"{arch} prefill: last logits differ by {err} "
+              f"(largest {ref_max})")
+        return model, caches
+
+    def layer_phase(arch, model, cfg, layer_fn, sub, kernel):
+        """Layer 0's temporal mix at 4 x 2048 in f32 with use_kernel=True,
+        as a main path, against its plain branch on the same weights."""
+        lp = getattr(model.segments[0][0], "0")
+        params = Params({n: t.float()
+                         for n, t in getattr(lp, sub).named_parameters()})
+        with torch.inference_mode():
+            x = rmsnorm(lp.ln1, embed(model.embed, tokens % cfg.vocab_size,
+                                      cfg).float(), cfg.norm_eps)
+            (out, state), wall, got = run_path(
+                f"{arch} layer 0", lambda: layer_fn(params, x, cfg=cfg,
+                                                    use_kernel=True),
+                {kernel: 1})
+            want, want_state = layer_fn(params, x, cfg=cfg)
+        state_errs = {n: max_err(state[n], want_state[n]) for n in want_state}
+        out_err = max_err(out, want)
+        phase("layer", arch=arch, layer=f"0.{sub}", dtype="float32",
+              shape=tuple(x.shape), launches=got, wall_s=f"{wall:.4f}",
+              out_max_abs_err=f"{out_err:.3e}",
+              out_max_abs=f"{want.abs().max().item():.3e}",
+              state_max_abs_err={n: f"{e:.3e}" for n, e in
+                                 state_errs.items()}, tol=LAYER_TOL)
+        check(bool(torch.isfinite(out).all()), f"{arch} layer: not finite")
+        check(max(out_err, *state_errs.values()) <= LAYER_TOL,
+              f"{arch} layer 0 with use_kernel=True differs from the plain "
+              f"branch: out {out_err}, state {state_errs}")
+
     cfg = prefill_config("llama3.2-1b", attn_impl="flash")
-    params = init_params(model_struct(cfg), gen, dtype=torch.bfloat16,
-                         device=dev)
-    model = Transformer(cfg, params)
-    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
-                           generator=gen, device=dev)
-    batch = {"tokens": tokens}
-    prefill(model, cfg, batch)          # warm-up: cuBLAS plans, allocator
-    ops.flash_attention.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, caches = prefill(model, cfg, batch)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    launches = ops.flash_attention.launches
-    check(launches == cfg.n_layers,
-          f"prefill launched flash_attention {launches} times, "
-          f"expected {cfg.n_layers}")
-    check(logits.shape == (PREFILL_B, PREFILL_S, cfg.vocab_size),
-          f"prefill logits shape {tuple(logits.shape)}")
+    model, caches = prefill_phase("llama3.2-1b", cfg,
+                                  cfg.replace(attn_impl="reference"),
+                                  {"flash_attention": cfg.n_layers},
+                                  torch.bfloat16)
     check(caches[0]["0"]["k"].shape == (cfg.n_layers, PREFILL_B, PREFILL_S,
                                         cfg.n_kv_heads, cfg.hd),
-          "prefill cache shape")
-    last = logits[:, -1].float()
-    del logits, caches
-    ref_logits, _ = prefill(model, cfg.replace(attn_impl="reference"), batch)
-    ref_last = ref_logits[:, -1].float()
-    del ref_logits
-    logit_err = (last - ref_last).abs().max().item()
-    phase("prefill", arch=cfg.name, params="bf16",
-          tokens=f"{PREFILL_B}x{PREFILL_S}", flash_launches=launches,
-          wall_s=f"{prefill_s:.4f}",
-          tok_per_s=f"{PREFILL_B * PREFILL_S / prefill_s:.1f}",
-          last_logits_max_abs_err_vs_reference=f"{logit_err:.3e}",
-          tol=PREFILL_LOGITS_TOL,
-          ref_logits_max_abs=f"{ref_last.abs().max().item():.3e}")
-    check(bool(torch.isfinite(last).all()), "prefill logits not finite")
-    check(logit_err <= PREFILL_LOGITS_TOL,
-          f"prefill logits differ from the reference by {logit_err}")
-    del model, params, last, ref_last
+          "llama prefill cache shape")
+    del model, caches
+    torch.cuda.empty_cache()
+
+    cfg = prefill_config("recurrentgemma-2b", attn_impl="flash")
+    n_local = cfg.kinds.count("local")
+    model, caches = prefill_phase("recurrentgemma-2b", cfg,
+                                  cfg.replace(attn_impl="reference"),
+                                  {"flash_attention": n_local},
+                                  torch.bfloat16)
+    repeat = cfg.layer_plan[0][1]
+    check(caches[0]["0"]["h"].shape == (repeat, PREFILL_B, cfg.lru_width)
+          and caches[0]["2"]["k"].shape == (repeat, PREFILL_B, PREFILL_S,
+                                            cfg.n_kv_heads, cfg.hd),
+          "recurrentgemma prefill cache shapes")
+    del caches
+    layer_phase("recurrentgemma-2b", model, cfg, recurrent.rglru, "rglru",
+                "rglru_scan")
+    del model
+    torch.cuda.empty_cache()
+
+    # The chunked form is exact only while a chunk's summed log-decay stays
+    # above its -30 clip; at this init's decays (~e^-1 a step) that holds
+    # for 16-token chunks and not for the default 64.
+    cfg = prefill_config("rwkv6-3b")
+    model, caches = prefill_phase(
+        "rwkv6-3b", cfg, cfg.replace(rwkv_impl="chunked", rwkv_chunk=16), {},
+        torch.float32)
+    check(caches[0]["0"]["wkv"].shape == (cfg.n_layers, PREFILL_B,
+                                          *rwkv_heads, rwkv_heads[1]),
+          "rwkv6 prefill cache shape")
+    del caches
+    layer_phase("rwkv6-3b", model, cfg, recurrent.rwkv6_time_mix, "tm",
+                "rwkv6_scan")
+    del model
     torch.cuda.empty_cache()
 
     # 5. serve: full width, f32, greedy decode of 4 requests -----------------
-    serve("llama3.2-1b", smoke=False, batch=4, prompt_len=2, gen_len=2,
-          seed=SEED, device=dev)        # warm-up: cuBLAS f32 plans
-    ops.flash_attention.launches = 0
-    res = serve("llama3.2-1b", smoke=False, batch=4, prompt_len=16,
-                gen_len=32, seed=SEED, device=dev)
-    gen_tokens = res["generated"]
-    phase("serve", arch="llama3.2-1b", params="f32", batch=4, prompt_len=16,
-          gen_len=32, shape=gen_tokens.shape, wall_s=f"{res['wall_s']:.4f}",
-          tok_per_s=f"{res['tokens_per_s']:.1f}",
-          flash_launches=ops.flash_attention.launches)
-    print(f"  tokens[0]={gen_tokens[0].tolist()}")
-    check(gen_tokens.shape == (4, 32), f"serve shape {gen_tokens.shape}")
-    check(bool(((gen_tokens >= 0)
-                & (gen_tokens < get_config("llama3.2-1b").vocab_size)).all()),
-          "serve tokens out of the vocabulary")
-    torch.cuda.empty_cache()
+    for arch in ("llama3.2-1b", "recurrentgemma-2b", "rwkv6-3b"):
+        serve(arch, smoke=False, batch=4, prompt_len=2, gen_len=2,
+              seed=SEED, device=dev)    # warm-up: cuBLAS f32 plans
+        res, _, got = run_path(f"{arch} serve", lambda: serve(
+            arch, smoke=False, batch=4, prompt_len=16, gen_len=32,
+            seed=SEED, device=dev), {})
+        gen_tokens = res["generated"]
+        phase("serve", arch=arch, params="f32", batch=4, prompt_len=16,
+              gen_len=32, shape=gen_tokens.shape,
+              wall_s=f"{res['wall_s']:.4f}",
+              tok_per_s=f"{res['tokens_per_s']:.1f}", launches=got)
+        print(f"  tokens[0]={gen_tokens[0].tolist()}")
+        check(gen_tokens.shape == (4, 32), f"{arch} serve shape "
+              f"{gen_tokens.shape}")
+        check(bool(((gen_tokens >= 0)
+                    & (gen_tokens < get_config(arch).vocab_size)).all()),
+              f"{arch} serve tokens out of the vocabulary")
+        torch.cuda.empty_cache()
 
-    # 6. kernel times at the prefill shape ----------------------------------
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q, k, v = qkv(PREFILL_B, PREFILL_S, H, K, hd, torch.bfloat16)
-    ms = cuda_time_ms(lambda: ops.flash_attention(q, k, v, causal=True), 20)
-    plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(
-        q, k, v, causal=True), 5, warmup=1)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    flops = fa.attention_flops(PREFILL_B, PREFILL_S, PREFILL_S, H, hd,
-                               causal=True, window=0)
-    nbytes = fa.attention_bytes(q, k, v)
-    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    phase("kernel_time", kernel="flash_attention",
-          shape=f"B{PREFILL_B}xS{PREFILL_S}xH{H}xK{K}xhd{hd}", dtype="bf16",
-          ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-          library_ms=f"{library_ms:.4f}", flops=flops, bytes=nbytes,
-          bound_ms=f"{bound_ms:.4f}",
-          roofline_share=f"{bound_ms / ms:.4f}")
+    # 6. kernel times at the main paths' shapes ------------------------------
+    def attention_times(B, S, H, K, hd, window):
+        q, k, v = qkv(B, S, H, K, hd, torch.bfloat16)
+        bq, bk = fa.tiles(S, S, hd)
+        ms = cuda_time_ms(lambda: ops.flash_attention(
+            q, k, v, causal=True, window=window), 20)
+        plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, causal=True, window=window, bq=bq, bk=bk), 5, warmup=1)
+        # a window that reaches past S leaves the causal mask SDPA takes
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = None
+        if 0 < window < S:
+            i = torch.arange(S, device=dev)
+            diff = i[:, None] - i[None, :]
+            mask = (diff >= 0) & (diff < window)
+        library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True), 20)
+        flops = fa.attention_flops(B, S, S, H, hd, causal=True,
+                                   window=window)
+        nbytes = fa.attention_bytes(q, k, v)
+        bound_ms, bound_by = bound(flops, nbytes, torch.bfloat16)
+        shape = f"B{B}xS{S}xH{H}xK{K}xhd{hd}"
+        phase("kernel_time", kernel="flash_attention", shape=shape,
+              dtype="bf16", window=window, ms=f"{ms:.4f}",
+              plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+              flops=flops, bytes=nbytes, bound_ms=f"{bound_ms:.4f}",
+              bound_by=bound_by, roofline_share=f"{bound_ms / ms:.4f}")
+        return {"shape": shape, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms}
+
+    attn_llama = attention_times(PREFILL_B, PREFILL_S, *llama_attn, 0)
+    attn_rgemma = attention_times(PREFILL_B, PREFILL_S, *rgemma_attn,
+                                  gcfg.window_size)
+
+    a, b = rglru_inputs(PREFILL_B, PREFILL_S, gcfg.lru_width)
+    rglru_ms = cuda_time_ms(lambda: ops.rglru_scan(a, b), 20)
+    rglru_plain_ms = cuda_time_ms(lambda: rg.rglru_scan_plain(a, b), 3,
+                                  warmup=1)
+    rglru_bound = bound(rg.scan_flops(a), rg.scan_bytes(a), torch.float32)
+    phase("kernel_time", kernel="rglru_scan",
+          shape=f"B{PREFILL_B}xS{PREFILL_S}xW{gcfg.lru_width}",
+          dtype="float32", ms=f"{rglru_ms:.4f}",
+          plain_ms=f"{rglru_plain_ms:.4f}", library_ms=None,
+          flops=rg.scan_flops(a), bytes=rg.scan_bytes(a),
+          bound_ms=f"{rglru_bound[0]:.4f}", bound_by=rglru_bound[1],
+          roofline_share=f"{rglru_bound[0] / rglru_ms:.4f}")
+    del a, b
+
+    ins = rwkv_inputs(PREFILL_B, PREFILL_S, *rwkv_heads)
+    rwkv_shape = "B{}xS{}xH{}xhd{}".format(PREFILL_B, PREFILL_S, *rwkv_heads)
+    rwkv_ms = cuda_time_ms(lambda: ops.rwkv6_scan(*ins), 10)
+    rwkv_plain_ms = cuda_time_ms(lambda: rw.rwkv6_scan_plain(*ins), 2,
+                                 warmup=1)
+    rwkv_bound = bound(rw.scan_flops(ins[0]), rw.scan_bytes(ins[0]),
+                       torch.float32)
+    phase("kernel_time", kernel="rwkv6_scan",
+          shape=rwkv_shape, dtype="float32",
+          ms=f"{rwkv_ms:.4f}", plain_ms=f"{rwkv_plain_ms:.4f}",
+          library_ms=None, flops=rw.scan_flops(ins[0]),
+          bytes=rw.scan_bytes(ins[0]), bound_ms=f"{rwkv_bound[0]:.4f}",
+          bound_by=rwkv_bound[1],
+          roofline_share=f"{rwkv_bound[0] / rwkv_ms:.4f}")
+    del ins
 
     # 7. kernels line, device line -------------------------------------------
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:110",
-        "launches": launches,
-        "max_abs_err": errs["llama_causal_bf16"],
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms,
-    }]}), flush=True)
+    no_library = ("no single PyTorch call computes this recurrence "
+                  "(torch has no scan)")
+    print(json.dumps({"kernels": [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:110",
+         "launches": sum(launches["flash_attention"].values()),
+         "launches_by_path": launches["flash_attention"],
+         "max_abs_err": errs["llama_causal_bf16"], **attn_llama,
+         "hd256": {"max_abs_err": errs["rgemma_bf16"], **attn_rgemma}},
+        {"name": "rglru_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru_scan.py:46",
+         "launches": sum(launches["rglru_scan"].values()),
+         "launches_by_path": launches["rglru_scan"],
+         "max_abs_err": errs["rglru_prefill"],
+         "shape": f"B{PREFILL_B}xS{PREFILL_S}xW{gcfg.lru_width}",
+         "ms": rglru_ms, "plain_ms": rglru_plain_ms,
+         "bound_ms": rglru_bound[0], "bound_by": rglru_bound[1],
+         "library_ms": None, "library_note": no_library},
+        {"name": "rwkv6_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/rwkv6_scan.cu",
+         "replaces": "src/repro/kernels/rwkv6_scan.py:52",
+         "launches": sum(launches["rwkv6_scan"].values()),
+         "launches_by_path": launches["rwkv6_scan"],
+         "max_abs_err": errs["rwkv_prefill"],
+         "shape": rwkv_shape,
+         "ms": rwkv_ms, "plain_ms": rwkv_plain_ms,
+         "bound_ms": rwkv_bound[0], "bound_by": rwkv_bound[1],
+         "library_ms": None, "library_note": no_library},
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
     return 0

@@ -1,14 +1,17 @@
-"""Architecture registry.  The port carries llama3.2-1b so far; the other
-nine architectures of the JAX package are named so that asking for one says
-where it stands instead of failing as unknown."""
+"""Architecture registry.  The port carries llama3.2-1b, recurrentgemma-2b
+and rwkv6-3b so far; the other seven architectures of the JAX package are
+named so that asking for one says where it stands instead of failing as
+unknown."""
 from __future__ import annotations
 
 from repro_torch.models.base import ModelConfig
 
-from . import llama3_2_1b
+from . import llama3_2_1b, recurrentgemma_2b, rwkv6_3b
 
 _MODULES = {
     "llama3.2-1b": llama3_2_1b,
+    "recurrentgemma-2b": recurrentgemma_2b,
+    "rwkv6-3b": rwkv6_3b,
 }
 
 # architecture -> the ROADMAP.md item that ports it
@@ -17,11 +20,9 @@ NOT_PORTED = {
     "gemma3-4b": "item 9",
     "minitron-4b": "item 9",
     "internlm2-20b": "item 9",
-    "recurrentgemma-2b": "items 6 and 9",
     "internvl2-2b": "item 9",
     "mixtral-8x7b": "items 8 and 9",
     "deepseek-moe-16b": "items 8 and 9",
-    "rwkv6-3b": "items 7 and 9",
 }
 
 ARCH_NAMES = tuple(_MODULES)

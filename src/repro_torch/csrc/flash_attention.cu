@@ -9,7 +9,12 @@
 // read through their strides; only the head dimension must be contiguous.
 // The kv head of query head h is h / (H / K), so no repeated k/v exists.
 //
-// Schedule: one CTA per (q tile, head, batch) with one thread per q row.
+// Schedule: one CTA per (q tile, head, batch) with one thread per q row up
+// to hd 128.  At hd 256 a row's q and accumulator (512 floats) do not fit
+// one thread's registers: a group of G = 4 neighbouring threads shares the
+// row, each holding every G-th float4 of it, and the group sums its q.k
+// partial dots with __shfl_xor_sync.  That CTA holds up to 64 rows, and the
+// caller takes 64-key tiles so the f32 k/v tiles fit in shared memory.
 // The CTA walks only the kv tiles kv_tile_range() gives, which are exactly
 // the tiles the TPU kernel's _tile_class calls non-EMPTY: EMPTY tiles are
 // never visited.  FULL tiles skip the mask.  Ragged Sq / Sk edges are
@@ -40,7 +45,13 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int CH = 16;          // keys per online-softmax step
-constexpr int MAX_BQ = 128;     // threads (q rows) per CTA
+constexpr int MAX_BQ = 128;     // q rows per CTA, one thread per row
+constexpr int MAX_BQ_WIDE = 64; // q rows per CTA at hd 256
+constexpr int WIDE_G = 4;       // threads per q row at hd 256
+
+__host__ __device__ constexpr int max_threads(int g) {
+  return g == 1 ? MAX_BQ : MAX_BQ_WIDE * g;
+}
 
 struct Params {
   const void* q; const void* k; const void* v; void* o;
@@ -77,31 +88,43 @@ __device__ __forceinline__ bool tile_full(int qs, int ks, int bq, int bk, int ca
   return full;
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(MAX_BQ) flash_attention_kernel(Params p) {
+// G threads share each q row; thread g of a group holds the float4s
+// g, g + G, g + 2G, ... of the row (interleaved, so the group's shared-memory
+// reads of one k/v row hit distinct banks).
+template <typename T, int HD, int G>
+__global__ void __launch_bounds__(max_threads(G)) flash_attention_kernel(Params p) {
+  constexpr int DG = HD / G;      // head dims this thread holds
   extern __shared__ float4 smem4[];
   const int rows = (p.bk + CH - 1) / CH * CH;
   float* k_tile = reinterpret_cast<float*>(smem4);
   float* v_tile = k_tile + rows * HD;
 
   const int tid = threadIdx.x;
+  const int g = tid % G;
   const int qs = blockIdx.x * p.bq;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (p.H / p.K);
-  const int row = qs + tid;
+  const int row = qs + tid / G;
   const bool row_live = row < p.Sq;
   const int kv_len = p.Sk;
+  // the lanes of this warp that exist (the last warp may be partial)
+  const int warp_lanes = min(32, int(blockDim.x) - (tid & ~31));
+  const unsigned lanes = warp_lanes == 32 ? 0xffffffffu : (1u << warp_lanes) - 1u;
 
   const T* qg = static_cast<const T*>(p.q);
   const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
 
-  float q[HD], acc[HD];
+  float q[DG], acc[DG];
 #pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    q[d] = row_live ? to_f32(qg[b * p.q_sb + row * p.q_ss + h * p.q_sh + d]) : 0.f;
-    acc[d] = 0.f;
+  for (int i = 0; i < DG / 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int d = 4 * (g + G * i) + c;
+      q[4 * i + c] = row_live ? to_f32(qg[b * p.q_sb + row * p.q_ss + h * p.q_sh + d]) : 0.f;
+      acc[4 * i + c] = 0.f;
+    }
   }
   float m = NEG_INF, l = 0.f;
 
@@ -134,13 +157,15 @@ __global__ void __launch_bounds__(MAX_BQ) flash_attention_kernel(Params p) {
         const float4* kr = reinterpret_cast<const float4*>(k_tile + (c0 + c) * HD);
         float dot = 0.f;
 #pragma unroll
-        for (int d4 = 0; d4 < HD / 4; ++d4) {
-          const float4 kk = kr[d4];
-          dot = fmaf(q[4 * d4 + 0], kk.x, dot);
-          dot = fmaf(q[4 * d4 + 1], kk.y, dot);
-          dot = fmaf(q[4 * d4 + 2], kk.z, dot);
-          dot = fmaf(q[4 * d4 + 3], kk.w, dot);
+        for (int i = 0; i < DG / 4; ++i) {
+          const float4 kk = kr[g + G * i];
+          dot = fmaf(q[4 * i + 0], kk.x, dot);
+          dot = fmaf(q[4 * i + 1], kk.y, dot);
+          dot = fmaf(q[4 * i + 2], kk.z, dot);
+          dot = fmaf(q[4 * i + 3], kk.w, dot);
         }
+#pragma unroll
+        for (int o = 1; o < G; o <<= 1) dot += __shfl_xor_sync(lanes, dot, o);
         float sv = dot * p.scale;
         if (!full) {
           const int kj = ks + c0 + c;
@@ -162,19 +187,19 @@ __global__ void __launch_bounds__(MAX_BQ) flash_attention_kernel(Params p) {
       }
       l = l * alpha + psum;
 #pragma unroll
-      for (int d4 = 0; d4 < HD / 4; ++d4) {
-        float a0 = acc[4 * d4 + 0] * alpha, a1 = acc[4 * d4 + 1] * alpha;
-        float a2 = acc[4 * d4 + 2] * alpha, a3 = acc[4 * d4 + 3] * alpha;
+      for (int i = 0; i < DG / 4; ++i) {
+        float a0 = acc[4 * i + 0] * alpha, a1 = acc[4 * i + 1] * alpha;
+        float a2 = acc[4 * i + 2] * alpha, a3 = acc[4 * i + 3] * alpha;
 #pragma unroll
         for (int c = 0; c < CH; ++c) {
-          const float4 vv = reinterpret_cast<const float4*>(v_tile + (c0 + c) * HD)[d4];
+          const float4 vv = reinterpret_cast<const float4*>(v_tile + (c0 + c) * HD)[g + G * i];
           a0 = fmaf(s[c], vv.x, a0);
           a1 = fmaf(s[c], vv.y, a1);
           a2 = fmaf(s[c], vv.z, a2);
           a3 = fmaf(s[c], vv.w, a3);
         }
-        acc[4 * d4 + 0] = a0; acc[4 * d4 + 1] = a1;
-        acc[4 * d4 + 2] = a2; acc[4 * d4 + 3] = a3;
+        acc[4 * i + 0] = a0; acc[4 * i + 1] = a1;
+        acc[4 * i + 2] = a2; acc[4 * i + 3] = a3;
       }
       m = m_new;
     }
@@ -184,22 +209,26 @@ __global__ void __launch_bounds__(MAX_BQ) flash_attention_kernel(Params p) {
     const float denom = fmaxf(l, 1e-30f);
     T* og = static_cast<T*>(p.o) + b * p.o_sb + row * p.o_ss + h * p.o_sh;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) og[d] = from_f32<T>(acc[d] / denom);
+    for (int i = 0; i < DG / 4; ++i) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) og[4 * (g + G * i) + c] = from_f32<T>(acc[4 * i + c] / denom);
+    }
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int G = 1>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
+  if (p.bq * G > max_threads(G)) return cudaErrorInvalidValue;
   const int rows = (p.bk + CH - 1) / CH * CH;
   const size_t smem = size_t(2) * rows * HD * sizeof(float);
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, HD>,
+    cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, HD, G>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            int(smem));
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((p.Sq + p.bq - 1) / p.bq, p.H, p.B);
-  flash_attention_kernel<T, HD><<<grid, p.bq, smem, stream>>>(p);
+  flash_attention_kernel<T, HD, G><<<grid, p.bq * G, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -211,6 +240,7 @@ cudaError_t dispatch_hd(const Params& p, int hd, cudaStream_t stream) {
     case 32: return launch<T, 32>(p, stream);
     case 64: return launch<T, 64>(p, stream);
     case 128: return launch<T, 128>(p, stream);
+    case 256: return launch<T, 256, WIDE_G>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -21,8 +21,13 @@ DEFAULT_BQ = 128
 DEFAULT_BK = 128
 NEG_INF = -1e30
 
-# the kernel keeps one q row per thread and a kv tile in shared memory
-_HEAD_DIMS = (8, 16, 32, 64, 128)
+# The kernel keeps a q row and its accumulator in registers and a kv tile
+# in shared memory.  Up to hd 128 one thread holds a row and a CTA holds up
+# to 128 rows; at hd 256 a group of 4 threads splits each row and a CTA
+# holds up to 64, with 64-key tiles so the f32 k/v tiles fit (128 KB).
+_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+_WIDE_HD = 256
+_WIDE_TILE = 64
 _MAX_BQ = 128
 _MAX_SMEM = 232_448
 _CHUNK = 16        # keys per online-softmax step in the kernel (csrc CH)
@@ -79,6 +84,16 @@ def tile_stats(Sq: int, Sk: int, *, causal: bool, window: int,
     return {"total": total, "empty": empty, "full": full, "partial": partial,
             "flops_kept_frac": (full + partial) / total,
             "mask_overhead_frac": partial / max(1, full + partial)}
+
+
+def tiles(Sq: int, Sk: int, hd: int, bq: int | None = None,
+          bk: int | None = None) -> tuple[int, int]:
+    """The (bq, bk) the wrapper runs with: the kernel's defaults for this
+    head dim where not given, cut to the sequence (at least 8)."""
+    wide = hd == _WIDE_HD
+    bq = (_WIDE_TILE if wide else DEFAULT_BQ) if bq is None else bq
+    bk = (_WIDE_TILE if wide else DEFAULT_BK) if bk is None else bk
+    return min(bq, max(8, Sq)), min(bk, max(8, Sk))
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -161,7 +176,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int, bq: int,
                          "form a GQA attention")
     if hd not in _HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {_HEAD_DIMS}")
-    if not (1 <= bq <= _MAX_BQ) or bk < 1 or _smem_bytes(bk, hd) > _MAX_SMEM:
+    max_bq = _WIDE_TILE if hd == _WIDE_HD else _MAX_BQ
+    if not (1 <= bq <= max_bq) or bk < 1 or _smem_bytes(bk, hd) > _MAX_SMEM:
         raise ValueError(f"tile {bq}x{bk} out of range for head_dim {hd}")
     if min(q.stride(3), k.stride(3), v.stride(3)) != 1:
         raise ValueError("the head dimension must be contiguous")

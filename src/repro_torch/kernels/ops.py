@@ -8,14 +8,15 @@ can show that its main path went through the kernel.
 from __future__ import annotations
 
 from . import flash_attention as _fa
+from . import rglru_scan as _rg
+from . import rwkv6_scan as _rw
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    bq: int = _fa.DEFAULT_BQ, bk: int = _fa.DEFAULT_BK):
-    """q: [B, S, H, hd]; k, v: [B, S, K, hd] (GQA).  Returns [B, S, H, hd]."""
-    Sq, Sk = q.shape[1], k.shape[1]
-    bq = min(bq, max(8, Sq))
-    bk = min(bk, max(8, Sk))
+                    bq: int | None = None, bk: int | None = None):
+    """q: [B, S, H, hd]; k, v: [B, S, K, hd] (GQA).  Returns [B, S, H, hd].
+    Tiles default to the kernel's for this head dim (:func:`_fa.tiles`)."""
+    bq, bk = _fa.tiles(q.shape[1], k.shape[1], q.shape[3], bq, bk)
     if q.device.type == "cpu":
         return _fa.flash_attention_plain(q, k, v, causal=causal, window=window,
                                          bq=bq, bk=bk)
@@ -25,4 +26,29 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return out
 
 
+def rglru_scan(a, b, *, bs: int = _rg.DEFAULT_BS, bw: int = _rg.DEFAULT_BW):
+    """a, b: [B, S, W] f32 recurrence coefficients -> h [B, S, W] f32.
+
+    ``bs`` is the plain version's chunk of time steps, ``bw`` the kernel's
+    channels per CTA."""
+    if a.device.type == "cpu":
+        return _rg.rglru_scan_plain(a, b, bs=bs)
+    h = _rg.rglru_scan_cuda(a, b, bw=bw)
+    rglru_scan.launches += 1
+    return h
+
+
+def rwkv6_scan(r, k, v, w, u, *, bs: int = _rw.DEFAULT_BS):
+    """r,k,v,w: [B, S, H, hd] f32; u: [H, hd].  Returns (out, s_last) with
+    out [B, S, H, hd], s_last [B, H, hd, hd].  ``bs`` is the plain
+    version's chunk of time steps."""
+    if r.device.type == "cpu":
+        return _rw.rwkv6_scan_plain(r, k, v, w, u, bs=bs)
+    out = _rw.rwkv6_scan_cuda(r, k, v, w, u)
+    rwkv6_scan.launches += 1
+    return out
+
+
 flash_attention.launches = 0
+rglru_scan.launches = 0
+rwkv6_scan.launches = 0

@@ -19,7 +19,8 @@ def prefill_config(arch: str, *, smoke: bool = False,
 
 
 def prefill(params: Transformer, cfg: ModelConfig, batch: dict):
-    """Returns (logits [B, S, V], per-segment stacked k/v caches)."""
+    """Returns (logits [B, S, V], per-segment stacked caches: k/v for
+    attention layers, conv/h for RG-LRU, tm_shift/wkv/cm_shift for RWKV)."""
     with torch.inference_mode():
         logits, _, caches = forward(params, cfg, batch,
                                     return_cache=cfg.is_decoder)

@@ -5,8 +5,8 @@ The param tree keeps the JAX package's layout: ``segments[i][str(j)]``
 holds the stacked ``[repeat, ...]`` params of pattern position ``j``.
 :class:`Transformer` wraps it as modules, one :class:`Params` block per
 layer (a view of its slice, not a copy), and the Python loop over layers
-takes the place of ``lax.scan``.  Dense GLOBAL / LOCAL / SWA layers are
-ported; recurrent, RWKV and MoE layers are not yet.
+takes the place of ``lax.scan``.  Dense GLOBAL / LOCAL / SWA, RECURRENT
+(RG-LRU) and RWKV-6 layers are ported; MoE layers are not yet.
 """
 from __future__ import annotations
 
@@ -17,9 +17,12 @@ from .base import GLOBAL, RECURRENT, RWKV, ModelConfig, P, Params, tree_map
 from .layers import (attention, attention_cache_struct, attention_struct,
                      embed, embed_struct, head_struct, lm_logits, mlp,
                      mlp_struct, rmsnorm, rmsnorm_struct)
+from .recurrent import (rglru, rglru_state_struct, rglru_struct,
+                        rwkv6_channel_mix, rwkv6_state_struct, rwkv6_struct,
+                        rwkv6_time_mix)
 
 # layer kind -> the ROADMAP.md item that ports it
-_NOT_PORTED = {RECURRENT: "item 6", RWKV: "item 7", "moe": "item 8"}
+_NOT_PORTED = {"moe": "item 8"}
 
 # ---------------------------------------------------------------------------
 # structure
@@ -64,17 +67,23 @@ def _segments(cfg: ModelConfig) -> list[dict]:
     return segs
 
 
-def _layer_struct(cfg: ModelConfig):
+def _layer_struct(cfg: ModelConfig, kind: str):
     d = cfg.d_model
-    return {"ln1": rmsnorm_struct(d), "attn": attention_struct(cfg),
+    if kind == RWKV:
+        s = rwkv6_struct(cfg)
+        return {"ln1": rmsnorm_struct(d), "tm": s["tm"],
+                "ln2": rmsnorm_struct(d), "cm": s["cm"]}
+    core = ({"rglru": rglru_struct(cfg)} if kind == RECURRENT
+            else {"attn": attention_struct(cfg)})
+    return {"ln1": rmsnorm_struct(d), **core,
             "ln2": rmsnorm_struct(d), "ffn": mlp_struct(d, cfg.d_ff)}
 
 
 def model_struct(cfg: ModelConfig):
     seg_structs = []
     for seg in _segments(cfg):
-        per_pos = {str(j): _layer_struct(cfg)
-                   for j in range(len(seg["pattern"]))}
+        per_pos = {str(j): _layer_struct(cfg, kind)
+                   for j, kind in enumerate(seg["pattern"])}
         seg_structs.append(_stack(per_pos, seg["repeat"]))
     return {
         "embed": embed_struct(cfg),
@@ -90,10 +99,15 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int):
     for seg in _segments(cfg):
         per_pos = {}
         for j, kind in enumerate(seg["pattern"]):
-            # local/swa layers only need a window-sized cache
-            n = max_len if kind == GLOBAL else min(
-                max_len, max(cfg.window_size, 1))
-            per_pos[str(j)] = attention_cache_struct(cfg, batch, n)
+            if kind == RWKV:
+                per_pos[str(j)] = rwkv6_state_struct(cfg, batch)
+            elif kind == RECURRENT:
+                per_pos[str(j)] = rglru_state_struct(cfg, batch)
+            else:
+                # local/swa layers only need a window-sized cache
+                n = max_len if kind == GLOBAL else min(
+                    max_len, max(cfg.window_size, 1))
+                per_pos[str(j)] = attention_cache_struct(cfg, batch, n)
         out.append(_stack(per_pos, seg["repeat"]))
     return out
 
@@ -122,9 +136,25 @@ def _apply_layer(lp, x, *, cfg: ModelConfig, kind: str, positions,
                  cache=None, cache_pos=None):
     """One residual block.  Returns (x, new_cache)."""
     h = rmsnorm(lp.ln1, x, cfg.norm_eps)
-    out, new_cache = attention(lp.attn, h, cfg=cfg, kind=kind,
-                               positions=positions, kv_cache=cache,
-                               cache_pos=cache_pos)
+    if kind == RWKV:
+        out, tm_state = rwkv6_time_mix(
+            lp.tm, h, cfg=cfg,
+            state=None if cache is None else {"shift": cache["tm_shift"],
+                                              "wkv": cache["wkv"]})
+        x = x + out
+        h2 = rmsnorm(lp.ln2, x, cfg.norm_eps)
+        out2, cm_state = rwkv6_channel_mix(
+            lp.cm, h2,
+            state=None if cache is None else {"shift": cache["cm_shift"]})
+        return x + out2, {"tm_shift": tm_state["shift"],
+                          "wkv": tm_state["wkv"],
+                          "cm_shift": cm_state["shift"]}
+    if kind == RECURRENT:
+        out, new_cache = rglru(lp.rglru, h, cfg=cfg, state=cache)
+    else:
+        out, new_cache = attention(lp.attn, h, cfg=cfg, kind=kind,
+                                   positions=positions, kv_cache=cache,
+                                   cache_pos=cache_pos)
     x = x + out
     h2 = rmsnorm(lp.ln2, x, cfg.norm_eps)
     return x + mlp(lp.ffn, h2), new_cache
@@ -154,7 +184,7 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
                     per_pos[str(j)].append(c)
         if return_cache:
             caches.append({j: {name: torch.stack([c[name] for c in cs])
-                               for name in ("k", "v")}
+                               for name in cs[0]}
                            for j, cs in per_pos.items()})
 
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
@@ -170,6 +200,8 @@ def decode_step(params: Transformer, cfg: ModelConfig, caches, tokens,
                 cache_pos: int):
     """One token step.  tokens: [B, 1] int; caches as from cache_struct
     (stacked per segment), updated in place; cache_pos: the position.
+    Attention writes its ring buffer in place; a recurrent or RWKV layer
+    returns new state tensors, which are copied into the stacked cache.
 
     Returns (logits [B, 1, V], caches).
     """
@@ -182,9 +214,13 @@ def decode_step(params: Transformer, cfg: ModelConfig, caches, tokens,
             for j, kind in enumerate(seg["pattern"]):
                 layer_cache = {name: t[r]
                                for name, t in seg_cache[str(j)].items()}
-                x, _ = _apply_layer(getattr(lp, str(j)), x, cfg=cfg,
-                                    kind=kind, positions=positions,
-                                    cache=layer_cache, cache_pos=cache_pos)
+                x, new_cache = _apply_layer(
+                    getattr(lp, str(j)), x, cfg=cfg, kind=kind,
+                    positions=positions, cache=layer_cache,
+                    cache_pos=cache_pos)
+                for name, t in new_cache.items():
+                    if t is not layer_cache[name]:
+                        layer_cache[name].copy_(t)
 
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     logits = lm_logits(params.head, params.embed, x, cfg)

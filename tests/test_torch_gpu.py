@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, held against their plain PyTorch
-versions, and the smoke model's prefill through the kernel held against the
-port's CPU path (which ``test_torch_models.py`` holds against JAX).
+versions, and the smoke models' prefill on the card held against the port's
+CPU path (which ``test_torch_models.py`` and ``test_torch_recurrent.py``
+hold against JAX).
 
 Every test here needs an NVIDIA GPU: it carries the ``gpu`` marker and skips
 without one.  Run them on the card with
@@ -13,8 +14,11 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import rglru_scan as rg
+from repro_torch.kernels import rwkv6_scan as rw
 from repro_torch.launch.steps import prefill
 from repro_torch.models import Transformer, forward, init_params, model_struct
+from repro_torch.models import recurrent
 from repro_torch.models.base import tree_map
 
 pytestmark = pytest.mark.gpu
@@ -43,6 +47,9 @@ def _qkv(seed, B, S, H, Kh, hd, dtype, device):
     (1, 200, 4, 4, 32, False, 0, torch.float32, 2e-5),
     (1, 77, 2, 2, 128, False, 16, torch.bfloat16, 2e-2),
     (2, 12, 4, 2, 16, True, 0, torch.float32, 2e-5),
+    (2, 300, 4, 1, 256, True, 64, torch.float32, 2e-5),     # hd 256
+    (1, 200, 10, 1, 256, True, 128, torch.bfloat16, 2e-2),
+    (1, 77, 2, 2, 256, False, 0, torch.float32, 2e-5),
 ])
 def test_cuda_kernel_matches_plain(cuda, B, S, H, Kh, hd, causal, window,
                                    dtype, tol):
@@ -52,9 +59,9 @@ def test_cuda_kernel_matches_plain(cuda, B, S, H, Kh, hd, causal, window,
     torch.cuda.synchronize()
     assert ops.flash_attention.launches == before + 1
     assert out.dtype == dtype and out.shape == q.shape
-    blk = min(fa.DEFAULT_BQ, max(8, S))
+    bq, bk = fa.tiles(S, S, hd)
     want = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
-                                    bq=blk, bk=blk)
+                                    bq=bq, bk=bk)
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=tol, atol=tol)
 
@@ -74,6 +81,9 @@ def test_cuda_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros((1, 8, 2, 48), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         ops.flash_attention(q, q, q)
+    q = torch.zeros((1, 128, 2, 256), device=cuda)
+    with pytest.raises(ValueError, match="tile"):
+        ops.flash_attention(q, q, q, bq=128)       # hd 256 takes 64 rows
     h = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         ops.flash_attention(h, h, h)
@@ -95,3 +105,146 @@ def test_smoke_prefill_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-4,
                                atol=2e-4)
 
+
+
+def _randn(gen, shape, device):
+    return torch.randn(shape, generator=gen, device=device)
+
+
+@pytest.mark.parametrize("B,S,W,bw", [
+    (4, 256, 2560, rg.DEFAULT_BW),
+    (2, 1000, 2500, rg.DEFAULT_BW),     # ragged S and W
+    (1, 37, 70, 32),
+    (3, 5, 3, 1024),
+])
+def test_rglru_kernel_matches_plain(cuda, B, S, W, bw):
+    gen = torch.Generator(device=cuda).manual_seed(S + W)
+    a = torch.rand((B, S, W), generator=gen, device=cuda) * 0.499 + 0.5
+    b = _randn(gen, (B, S, W), cuda)
+    before = ops.rglru_scan.launches
+    h = ops.rglru_scan(a, b, bw=bw)
+    torch.cuda.synchronize()
+    assert ops.rglru_scan.launches == before + 1
+    want = rg.rglru_scan_plain(a, b)
+    np.testing.assert_allclose(h.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_rglru_kernel_reads_strided_inputs(cuda):
+    """a and b as halves of one [B, S, 2W] tensor, in time-major order."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    ab = _randn(gen, (300, 2, 2 * 96), cuda).transpose(0, 1)
+    a, b = torch.sigmoid(ab[..., :96]), ab[..., 96:]
+    h = ops.rglru_scan(a, b)
+    want = rg.rglru_scan_plain(a.contiguous(), b.contiguous())
+    np.testing.assert_allclose(h.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_rglru_kernel_rejects_what_it_does_not_take(cuda):
+    a = torch.zeros((1, 8, 16), device=cuda)
+    with pytest.raises(TypeError):
+        ops.rglru_scan(a.bfloat16(), a.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rglru_scan(a.transpose(1, 2), a.transpose(1, 2))
+    with pytest.raises(ValueError, match="bw"):
+        ops.rglru_scan(a, a, bw=2048)
+
+
+def _rwkv_inputs(gen, B, S, H, hd, device):
+    r, k, v = (_randn(gen, (B, S, H, hd), device) for _ in range(3))
+    w = torch.rand((B, S, H, hd), generator=gen, device=device) * 0.199 + 0.8
+    u = _randn(gen, (H, hd), device) * 0.1
+    return r, k, v, w, u
+
+
+@pytest.mark.parametrize("B,S,H,hd", [
+    (2, 256, 40, 64),
+    (1, 1000, 4, 64),       # ragged: the JAX wrapper would pad a tail
+    (2, 48, 2, 16),
+    (1, 24, 2, 8),
+    (1, 33, 3, 32),
+])
+def test_rwkv6_kernel_matches_plain(cuda, B, S, H, hd):
+    gen = torch.Generator(device=cuda).manual_seed(S + hd)
+    ins = _rwkv_inputs(gen, B, S, H, hd, cuda)
+    before = ops.rwkv6_scan.launches
+    out, s_last = ops.rwkv6_scan(*ins)
+    torch.cuda.synchronize()
+    assert ops.rwkv6_scan.launches == before + 1
+    want, s_want = rw.rwkv6_scan_plain(*ins)
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(s_last.cpu().numpy(), s_want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_rwkv6_kernel_reads_strided_inputs(cuda):
+    """r, k, v, w as slices of one fused [B, S, H, 4 hd] tensor."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    fused = _randn(gen, (2, 70, 3, 4 * 16), cuda)
+    r, k, v = (fused[..., i * 16:(i + 1) * 16] for i in range(3))
+    w = torch.sigmoid(fused[..., 48:])
+    u = _randn(gen, (3, 16), cuda) * 0.1
+    out, s_last = ops.rwkv6_scan(r, k, v, w, u)
+    want, s_want = rw.rwkv6_scan_plain(*(t.contiguous()
+                                         for t in (r, k, v, w, u)))
+    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(s_last.cpu().numpy(), s_want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_rwkv6_kernel_rejects_what_it_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    ins = _rwkv_inputs(gen, 1, 8, 2, 128, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.rwkv6_scan(*ins)
+    ins = _rwkv_inputs(gen, 1, 8, 2, 16, cuda)
+    with pytest.raises(TypeError):
+        ops.rwkv6_scan(*(t.bfloat16() for t in ins))
+    with pytest.raises(ValueError, match="u"):
+        ops.rwkv6_scan(*ins[:4], ins[4][:1])
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b"])
+def test_smoke_recurrent_model_on_card_matches_cpu(cuda, arch):
+    cfg = get_config(arch, smoke=True)
+    params = init_params(model_struct(cfg), torch.Generator().manual_seed(5),
+                         device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, size=(2, 40)))
+    cpu_model = Transformer(cfg, params)
+    want, _, _ = forward(cpu_model, cfg, {"tokens": toks})
+    gpu_params = tree_map(lambda t: t.to(cuda), params)
+    gpu_model = Transformer(cfg, gpu_params)
+    kw = {"attn_impl": "flash"} if arch == "recurrentgemma-2b" else {}
+    before = ops.flash_attention.launches
+    got, _ = prefill(gpu_model, cfg.replace(**kw), {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    n_local = cfg.kinds.count("local")
+    assert ops.flash_attention.launches == before + n_local
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-4,
+                               atol=2e-4)
+
+    # the layer entry point with use_kernel=True: one launch, same result
+    lp, clp = gpu_model.segments[0][0], cpu_model.segments[0][0]
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, 40, cfg.d_model)).astype(np.float32))
+    if arch == "recurrentgemma-2b":
+        layer, counter = recurrent.rglru, ops.rglru_scan
+        args = (getattr(lp, "0").rglru, getattr(clp, "0").rglru)
+    else:
+        layer, counter = recurrent.rwkv6_time_mix, ops.rwkv6_scan
+        args = (getattr(lp, "0").tm, getattr(clp, "0").tm)
+    before = counter.launches
+    out, state = layer(args[0], x.to(cuda), cfg=cfg, use_kernel=True)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want_out, want_state = layer(args[1], x, cfg=cfg, use_kernel=True)
+    np.testing.assert_allclose(out.cpu().numpy(), want_out.numpy(),
+                               rtol=2e-4, atol=2e-4)
+    for name in want_state:
+        np.testing.assert_allclose(state[name].cpu().numpy(),
+                                   want_state[name].numpy(), rtol=2e-4,
+                                   atol=2e-4, err_msg=name)

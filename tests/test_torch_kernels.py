@@ -33,6 +33,7 @@ SHAPES = [
     (64, 4, 1, 32, True, 16),       # MQA + window (SWA)
     (96, 2, 2, 64, True, 32),       # non-multiple of block, window
     (64, 2, 2, 32, False, 0),       # encoder (bidirectional)
+    (64, 2, 1, 256, True, 16),      # recurrentgemma's hd 256, MQA + window
 ]
 
 
@@ -112,3 +113,14 @@ def test_attention_flops_counts_live_pairs():
     assert tfa.attention_flops(1, 8, 8, 1, 4, causal=False, window=0) \
         == 4 * 4 * 64
 
+
+
+@pytest.mark.parametrize("Sq,hd,given,want", [
+    (2048, 64, (None, None), (128, 128)),
+    (2048, 256, (None, None), (64, 64)),     # hd 256: 64-row, 64-key tiles
+    (20, 256, (None, None), (20, 20)),
+    (4, 64, (None, None), (8, 8)),
+    (2048, 256, (32, 16), (32, 16)),
+])
+def test_tiles_follow_the_head_dim(Sq, hd, given, want):
+    assert tfa.tiles(Sq, Sq, hd, *given) == want
