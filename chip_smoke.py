@@ -6,9 +6,11 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port from the checkout's sources (flash
-attention K3, the RG-LRU scan K4, the RWKV-6 scan K5), holds each against
-its plain PyTorch version on the card, and drives the port's main paths at
-full width, with random weights drawn from a seed:
+attention K3, the RG-LRU scan K4, the RWKV-6 scan K5), shows that K3's bf16
+kernel runs on the tensor cores (its HMMA instructions, and no register
+spills), holds each kernel against its plain PyTorch version on the card
+(K3 at hd 64, 128, 256 and 320, in bf16 and f32), and drives the port's
+main paths at full width, with random weights drawn from a seed:
 
 - llama3.2-1b: a bf16 prefill of 4 x 2048 tokens through K3 (hd 64);
 - recurrentgemma-2b: a bf16 prefill of 4 x 2048 through K3 (hd 256), held
@@ -162,10 +164,26 @@ def main() -> int:
     logs = _build.build()
     phase("build", kernels=",".join(logs),
           seconds=f"{time.perf_counter() - t0:.1f}")
+    entry = ""
     for name, log in logs.items():
         for line in log.splitlines():
+            if "entry function" in line:
+                entry = line.split("'")[1]
             if "entry function" in line or "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+            # no tensor-core (bf16) instantiation of K3 may spill
+            if "tc_kernel" in entry and "spill" in line:
+                check(" 0 bytes spill stores, 0 bytes spill loads" in line,
+                      f"{entry} spills: {line.strip()}")
+    sass = subprocess.run(
+        [_build.cuda_tool("cuobjdump"), "-sass",
+         str(_build.library_path("flash_attention"))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    n_mma = {op: sum(f" {op}." in ln for ln in sass.splitlines())
+             for op in ("HMMA", "HGMMA")}
+    phase("sass", kernel="flash_attention", **n_mma)
+    check(n_mma["HMMA"] + n_mma["HGMMA"] > 0,
+          "the flash-attention library has no tensor-core instruction")
 
     # 3. kernel check: each kernel vs its plain twin on the same inputs -----
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -191,6 +209,11 @@ def main() -> int:
     B, S = PREFILL_B, PREFILL_S
     llama_attn = (lcfg.n_heads, lcfg.n_kv_heads, lcfg.hd)
     rgemma_attn = (gcfg.n_heads, gcfg.n_kv_heads, gcfg.hd)
+    # K3's other head dims, not yet on a ported model's path: hd 128 with
+    # GQA 4:1 (llama3-8b's 32/8 heads), and gemma3-4b's local layers (d 2560
+    # over 8 heads is hd 320, 4 kv heads, window 1024; the port has no
+    # gemma3 config yet, so these are literals)
+    hd128_attn, gemma3_attn, gemma3_window = (32, 8, 128), (8, 4, 320), 1024
     rwkv_heads = (rcfg.d_model // rcfg.rwkv_head_dim, rcfg.rwkv_head_dim)
     errs = {}
     attn_cases = [
@@ -203,11 +226,20 @@ def main() -> int:
          torch.bfloat16),
         ("rgemma_ragged_f32", 1, RAGGED_S, *rgemma_attn, True,
          RAGGED_S * 3 // 10, torch.float32),
+        ("hd128_bf16", B, S, *hd128_attn, True, 0, torch.bfloat16),
+        ("hd128_ragged_f32", 1, RAGGED_S, *hd128_attn, True, 0,
+         torch.float32),
+        ("gemma3_local_bf16", B, S, *gemma3_attn, True, gemma3_window,
+         torch.bfloat16),
+        ("gemma3_global_ragged_bf16", 2, RAGGED_S, *gemma3_attn, True, 0,
+         torch.bfloat16),
+        ("gemma3_local_ragged_f32", 1, RAGGED_S, *gemma3_attn, True,
+         RAGGED_S * 3 // 10, torch.float32),
     ]
     for name, B, S, H, K, hd, causal, window, dtype in attn_cases:
         q, k, v = qkv(B, S, H, K, hd, dtype)
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
-        bq, bk = fa.tiles(S, S, hd)
+        bq, bk = fa.tiles(S, S, hd, dtype=dtype)
         want = fa.flash_attention_plain(q, k, v, causal=causal,
                                         window=window, bq=bq, bk=bk)
         torch.cuda.synchronize()
@@ -397,7 +429,7 @@ def main() -> int:
     # 6. kernel times at the main paths' shapes ------------------------------
     def attention_times(B, S, H, K, hd, window):
         q, k, v = qkv(B, S, H, K, hd, torch.bfloat16)
-        bq, bk = fa.tiles(S, S, hd)
+        bq, bk = fa.tiles(S, S, hd, dtype=torch.bfloat16)
         ms = cuda_time_ms(lambda: ops.flash_attention(
             q, k, v, causal=True, window=window), 20)
         plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(
@@ -429,6 +461,9 @@ def main() -> int:
     attn_llama = attention_times(PREFILL_B, PREFILL_S, *llama_attn, 0)
     attn_rgemma = attention_times(PREFILL_B, PREFILL_S, *rgemma_attn,
                                   gcfg.window_size)
+    attn_hd128 = attention_times(PREFILL_B, PREFILL_S, *hd128_attn, 0)
+    attn_gemma3 = attention_times(PREFILL_B, PREFILL_S, *gemma3_attn,
+                                  gemma3_window)
 
     a, b = rglru_inputs(PREFILL_B, PREFILL_S, gcfg.lru_width)
     rglru_ms = cuda_time_ms(lambda: ops.rglru_scan(a, b), 20)
@@ -470,7 +505,10 @@ def main() -> int:
          "launches": sum(launches["flash_attention"].values()),
          "launches_by_path": launches["flash_attention"],
          "max_abs_err": errs["llama_causal_bf16"], **attn_llama,
-         "hd256": {"max_abs_err": errs["rgemma_bf16"], **attn_rgemma}},
+         "hd256": {"max_abs_err": errs["rgemma_bf16"], **attn_rgemma},
+         "hd128": {"max_abs_err": errs["hd128_bf16"], **attn_hd128},
+         "hd320": {"max_abs_err": errs["gemma3_local_bf16"],
+                   **attn_gemma3}},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan.py:46",

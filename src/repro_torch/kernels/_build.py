@@ -4,9 +4,10 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` into its own shared library
 with a plain C interface for ``sm_90a`` and loaded with ``ctypes``.  The
 build happens at first use, from the sources in this package only, into
 ``build/repro_torch/`` at the root of the checkout (listed in
-``.gitignore``).  A library is named by a hash of its source and flags, so an
-edited source is rebuilt.  Nothing here runs at import: the CPU tests import
-every module and have no ``nvcc``.
+``.gitignore``).  A library is named by a hash of its source, the headers
+``csrc/*.cuh`` and the flags, so an edited source or header is rebuilt.
+Nothing here runs at import: the CPU tests import every module and have no
+``nvcc``.
 """
 from __future__ import annotations
 
@@ -42,10 +43,18 @@ def _nvcc() -> str:
                        "CUDA toolkit's nvcc (set CUDA_HOME)")
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / _KERNELS[name][0]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+def library_path(name: str) -> Path:
+    """Where the named kernel's library is (or will be) built."""
+    h = hashlib.sha256((CSRC / _KERNELS[name][0]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def cuda_tool(tool: str) -> str:
+    """A program of the CUDA toolkit that holds nvcc (e.g. ``cuobjdump``)."""
+    return str(Path(_nvcc()).with_name(tool))
 
 
 def build(names=None) -> dict[str, str]:
@@ -56,7 +65,7 @@ def build(names=None) -> dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = _target(name)
+        out = library_path(name)
         if out.exists():
             BUILD_LOGS.setdefault(name, f"{out.name}: already built")
             continue
@@ -84,7 +93,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build([name])
-        lib = ctypes.CDLL(str(_target(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
         _KERNELS[name][1](lib)
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p

@@ -6,8 +6,10 @@ an active-mask grid; each tile is EMPTY (never visited), PARTIAL (computed
 under the causal / window / kv-tail mask) or FULL (computed unmasked).  The
 kernel itself is ``csrc/flash_attention.cu``: one CTA per (q-tile, head,
 batch) walks the kv tiles of :func:`kv_tile_range`, which are exactly the
-non-EMPTY tiles of :func:`_tile_class`.  :func:`flash_attention_plain` walks
-the same schedule in plain torch; the CPU path and the on-card check use it.
+non-EMPTY tiles of :func:`_tile_class`.  bf16 at hd 64, 128, 256 and 320
+runs on the tensor cores; f32, and bf16 at hd 8, 16 and 32, on the CUDA
+cores.  :func:`flash_attention_plain` walks the same schedule in plain torch;
+the CPU path and the on-card check use it.
 """
 from __future__ import annotations
 
@@ -21,16 +23,19 @@ DEFAULT_BQ = 128
 DEFAULT_BK = 128
 NEG_INF = -1e30
 
-# The kernel keeps a q row and its accumulator in registers and a kv tile
-# in shared memory.  Up to hd 128 one thread holds a row and a CTA holds up
-# to 128 rows; at hd 256 a group of 4 threads splits each row and a CTA
-# holds up to 64, with 64-key tiles so the f32 k/v tiles fit (128 KB).
-_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
-_WIDE_HD = 256
-_WIDE_TILE = 64
-_MAX_BQ = 128
+# hd -> (largest bq, default bk) of each instantiation of the kernel.  The
+# tensor-core kernel (bf16) runs 4 warps of 16 q rows and takes at most its
+# default bk: 64 keys, 32 from hd 256 up, where the accumulator fills the
+# registers.  The CUDA-core kernel (f32; bf16 at hd 8-32) holds a q row in
+# one thread up to hd 128 (128 rows a CTA), in 4 threads at hd 256 and in 8
+# at hd 320 (256 threads a CTA); its bk is bounded by its f32 k/v tiles in
+# shared memory.
+_TC_TILES = {64: (64, 64), 128: (64, 64), 256: (64, 32), 320: (64, 32)}
+_CORE_TILES = {8: (128, 128), 16: (128, 128), 32: (128, 128),
+               64: (128, 128), 128: (128, 128), 256: (64, 64), 320: (32, 64)}
+_BF16_CORE_HEAD_DIMS = (8, 16, 32)
 _MAX_SMEM = 232_448
-_CHUNK = 16        # keys per online-softmax step in the kernel (csrc CH)
+_CHUNK = 16        # keys per online-softmax step in the CUDA-core kernel
 
 
 def _tile_class(qs, ks, bq, bk, *, causal: bool, window: int, kv_len: int):
@@ -86,13 +91,25 @@ def tile_stats(Sq: int, Sk: int, *, causal: bool, window: int,
             "mask_overhead_frac": partial / max(1, full + partial)}
 
 
+def _instance(dtype, hd: int) -> tuple[bool, int, int] | None:
+    """(tensor cores, largest bq, default bk) of the kernel instantiation
+    that takes (dtype, hd), or None where none does."""
+    if dtype == torch.bfloat16 and hd in _TC_TILES:
+        return (True, *_TC_TILES[hd])
+    if hd in _CORE_TILES and (dtype == torch.float32
+                              or hd in _BF16_CORE_HEAD_DIMS):
+        return (False, *_CORE_TILES[hd])
+    return None
+
+
 def tiles(Sq: int, Sk: int, hd: int, bq: int | None = None,
-          bk: int | None = None) -> tuple[int, int]:
-    """The (bq, bk) the wrapper runs with: the kernel's defaults for this
-    head dim where not given, cut to the sequence (at least 8)."""
-    wide = hd == _WIDE_HD
-    bq = (_WIDE_TILE if wide else DEFAULT_BQ) if bq is None else bq
-    bk = (_WIDE_TILE if wide else DEFAULT_BK) if bk is None else bk
+          bk: int | None = None, *, dtype) -> tuple[int, int]:
+    """The (bq, bk) the wrapper runs with: the defaults of the kernel that
+    takes (dtype, hd) where not given, cut to the sequence (at least 8)."""
+    inst = _instance(dtype, hd)
+    _, bq0, bk0 = inst if inst else (False, DEFAULT_BQ, DEFAULT_BK)
+    bq = bq0 if bq is None else bq
+    bk = bk0 if bk is None else bk
     return min(bq, max(8, Sq)), min(bk, max(8, Sk))
 
 
@@ -150,9 +167,12 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _smem_bytes(bk: int, hd: int) -> int:
-    rows = -(-bk // _CHUNK) * _CHUNK
-    return 2 * rows * hd * 4
+def _smem_bytes(tensor_cores: bool, hd: int, bk: int) -> int:
+    """Dynamic shared memory of one CTA: the tensor-core kernel's bf16 q
+    tile and 2-stage k/v ring, or the CUDA-core kernel's f32 k/v tile."""
+    if tensor_cores:
+        return (_TC_TILES[hd][0] + 4 * _TC_TILES[hd][1]) * hd * 2
+    return 2 * -(-bk // _CHUNK) * _CHUNK * hd * 4
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool, window: int, bq: int,
@@ -174,13 +194,26 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int, bq: int,
     if k.shape[0] != B or k.shape[3] != hd or H % K:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          "form a GQA attention")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {_HEAD_DIMS}")
-    max_bq = _WIDE_TILE if hd == _WIDE_HD else _MAX_BQ
-    if not (1 <= bq <= max_bq) or bk < 1 or _smem_bytes(bk, hd) > _MAX_SMEM:
-        raise ValueError(f"tile {bq}x{bk} out of range for head_dim {hd}")
+    inst = _instance(q.dtype, hd)
+    if inst is None:
+        raise ValueError(f"head_dim {hd} is not taken in {q.dtype}: f32 takes "
+                         f"{tuple(_CORE_TILES)}, bf16 "
+                         f"{_BF16_CORE_HEAD_DIMS + tuple(_TC_TILES)}")
+    tensor_cores, max_bq, max_bk = inst
+    if (not (1 <= bq <= max_bq) or bk < 1
+            or (tensor_cores and bk > max_bk)
+            or _smem_bytes(tensor_cores, hd, bk) > _MAX_SMEM):
+        raise ValueError(f"tile {bq}x{bk} out of range for head_dim {hd} in "
+                         f"{q.dtype}")
     if min(q.stride(3), k.stride(3), v.stride(3)) != 1:
         raise ValueError("the head dimension must be contiguous")
+    # the tensor-core kernel copies rows 16 bytes at a time (cp.async)
+    if tensor_cores and any(t.data_ptr() % 16 or any(s % 8 for s in
+                                                     t.stride()[:3])
+                            for t in (q, k, v)):
+        raise ValueError("bf16 q, k, v must start on 16 bytes and have "
+                         "batch, seq and head strides that are multiples "
+                         "of 8 elements")
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     lib = _build.load("flash_attention")
     ptr = ctypes.c_void_p

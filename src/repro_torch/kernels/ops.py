@@ -15,8 +15,10 @@ from . import rwkv6_scan as _rw
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     bq: int | None = None, bk: int | None = None):
     """q: [B, S, H, hd]; k, v: [B, S, K, hd] (GQA).  Returns [B, S, H, hd].
-    Tiles default to the kernel's for this head dim (:func:`_fa.tiles`)."""
-    bq, bk = _fa.tiles(q.shape[1], k.shape[1], q.shape[3], bq, bk)
+    Tiles default to the kernel's for this dtype and head dim
+    (:func:`_fa.tiles`)."""
+    bq, bk = _fa.tiles(q.shape[1], k.shape[1], q.shape[3], bq, bk,
+                        dtype=q.dtype)
     if q.device.type == "cpu":
         return _fa.flash_attention_plain(q, k, v, causal=causal, window=window,
                                          bq=bq, bk=bk)

@@ -50,6 +50,21 @@ def _qkv(seed, B, S, H, Kh, hd, dtype, device):
     (2, 300, 4, 1, 256, True, 64, torch.float32, 2e-5),     # hd 256
     (1, 200, 10, 1, 256, True, 128, torch.bfloat16, 2e-2),
     (1, 77, 2, 2, 256, False, 0, torch.float32, 2e-5),
+    # the tensor-core kernel (bf16, hd 64-320): GQA groups of 1, 4 and 10,
+    # ragged S, windows under a tile and past S, non-causal
+    (2, 1000, 8, 8, 64, True, 0, torch.bfloat16, 2e-2),
+    (1, 333, 16, 4, 64, True, 5, torch.bfloat16, 2e-2),
+    (2, 513, 16, 4, 128, True, 0, torch.bfloat16, 2e-2),
+    (1, 190, 8, 2, 128, False, 0, torch.bfloat16, 2e-2),
+    (1, 300, 8, 8, 128, True, 1000, torch.bfloat16, 2e-2),
+    (2, 700, 10, 1, 256, True, 2048, torch.bfloat16, 2e-2),
+    (1, 129, 4, 4, 256, False, 40, torch.bfloat16, 2e-2),
+    (2, 450, 8, 4, 320, True, 100, torch.bfloat16, 2e-2),   # gemma3-4b
+    (1, 257, 8, 4, 320, True, 0, torch.bfloat16, 2e-2),
+    (1, 100, 10, 1, 320, False, 0, torch.bfloat16, 2e-2),
+    (1, 9, 8, 4, 320, True, 3, torch.bfloat16, 2e-2),
+    (1, 450, 8, 4, 320, True, 100, torch.float32, 2e-5),
+    (1, 77, 4, 2, 320, False, 0, torch.float32, 2e-5),
 ])
 def test_cuda_kernel_matches_plain(cuda, B, S, H, Kh, hd, causal, window,
                                    dtype, tol):
@@ -59,31 +74,55 @@ def test_cuda_kernel_matches_plain(cuda, B, S, H, Kh, hd, causal, window,
     torch.cuda.synchronize()
     assert ops.flash_attention.launches == before + 1
     assert out.dtype == dtype and out.shape == q.shape
-    bq, bk = fa.tiles(S, S, hd)
+    bq, bk = fa.tiles(S, S, hd, dtype=dtype)
     want = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
                                     bq=bq, bk=bk)
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=tol, atol=tol)
 
 
-def test_cuda_kernel_reads_strided_inputs(cuda):
+@pytest.mark.parametrize("bq,bk", [(16, 16), (37, 24), (64, 64)])
+def test_cuda_kernel_takes_smaller_tiles(cuda, bq, bk):
+    """A tile under the kernel's own still walks the plain twin's schedule."""
+    q, k, v = _qkv(8, 1, 200, 4, 2, 64, torch.bfloat16, cuda)
+    out = ops.flash_attention(q, k, v, causal=True, window=50, bq=bq, bk=bk)
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=50, bq=bq,
+                                    bk=bk)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_kernel_reads_strided_inputs(cuda, dtype, tol):
     """q, k, v as slices of one fused qkv tensor: read through strides."""
-    qkv = _qkv(5, 2, 130, 12, 1, 64, torch.float32, cuda)[0]   # [2,130,12,64]
+    qkv = _qkv(5, 2, 130, 12, 1, 64, dtype, cuda)[0]           # [2,130,12,64]
     q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:12]
     out = ops.flash_attention(q, k, v, causal=True)
+    bq, bk = fa.tiles(130, 130, 64, dtype=dtype)
     want = fa.flash_attention_plain(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), causal=True)
-    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
-                               rtol=2e-5, atol=2e-5)
+                                    v.contiguous(), causal=True, bq=bq, bk=bk)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
 
 
 def test_cuda_kernel_rejects_what_it_does_not_take(cuda):
-    q = torch.zeros((1, 8, 2, 48), device=cuda)
-    with pytest.raises(ValueError, match="head_dim"):
-        ops.flash_attention(q, q, q)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros((1, 8, 2, 48), device=cuda, dtype=dtype)
+        with pytest.raises(ValueError, match="head_dim"):
+            ops.flash_attention(q, q, q)
     q = torch.zeros((1, 128, 2, 256), device=cuda)
     with pytest.raises(ValueError, match="tile"):
-        ops.flash_attention(q, q, q, bq=128)       # hd 256 takes 64 rows
+        ops.flash_attention(q, q, q, bq=128)       # f32 hd 256 takes 64 rows
+    q = torch.zeros((1, 128, 2, 320), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="tile"):
+        ops.flash_attention(q, q, q, bk=64)        # bf16 hd 320 takes 32 keys
+    with pytest.raises(ValueError, match="16 bytes"):
+        # a view one element in: its rows do not start on 16 bytes
+        x = torch.zeros((1, 64, 2, 65), device=cuda, dtype=torch.bfloat16)
+        y = x[..., 1:]
+        ops.flash_attention(y, y, y)
     h = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         ops.flash_attention(h, h, h)

@@ -34,6 +34,9 @@ SHAPES = [
     (96, 2, 2, 64, True, 32),       # non-multiple of block, window
     (64, 2, 2, 32, False, 0),       # encoder (bidirectional)
     (64, 2, 1, 256, True, 16),      # recurrentgemma's hd 256, MQA + window
+    (64, 8, 2, 128, True, 0),       # hd 128, GQA 4:1
+    (96, 8, 4, 320, True, 24),      # gemma3-4b's local layers: hd 320
+    (64, 8, 4, 320, True, 0),       # gemma3-4b's global layers
 ]
 
 
@@ -115,12 +118,20 @@ def test_attention_flops_counts_live_pairs():
 
 
 
-@pytest.mark.parametrize("Sq,hd,given,want", [
-    (2048, 64, (None, None), (128, 128)),
-    (2048, 256, (None, None), (64, 64)),     # hd 256: 64-row, 64-key tiles
-    (20, 256, (None, None), (20, 20)),
-    (4, 64, (None, None), (8, 8)),
-    (2048, 256, (32, 16), (32, 16)),
+@pytest.mark.parametrize("Sq,hd,dtype,given,want", [
+    (2048, 64, torch.float32, (None, None), (128, 128)),
+    (2048, 256, torch.float32, (None, None), (64, 64)),   # 4 threads a row
+    (2048, 320, torch.float32, (None, None), (32, 64)),   # 8 threads a row
+    (2048, 32, torch.bfloat16, (None, None), (128, 128)), # CUDA cores
+    (2048, 64, torch.bfloat16, (None, None), (64, 64)),   # tensor cores
+    (2048, 128, torch.bfloat16, (None, None), (64, 64)),
+    (2048, 256, torch.bfloat16, (None, None), (64, 32)),
+    (2048, 320, torch.bfloat16, (None, None), (64, 32)),
+    (20, 256, torch.float32, (None, None), (20, 20)),
+    (20, 320, torch.bfloat16, (None, None), (20, 20)),
+    (4, 64, torch.float32, (None, None), (8, 8)),
+    (2048, 256, torch.float32, (32, 16), (32, 16)),
+    (2048, 48, torch.bfloat16, (None, None), (128, 128)), # no kernel: plain
 ])
-def test_tiles_follow_the_head_dim(Sq, hd, given, want):
-    assert tfa.tiles(Sq, Sq, hd, *given) == want
+def test_tiles_follow_the_head_dim(Sq, hd, dtype, given, want):
+    assert tfa.tiles(Sq, Sq, hd, *given, dtype=dtype) == want
