@@ -6,11 +6,15 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port from the checkout's sources (flash
-attention K3, the RG-LRU scan K4, the RWKV-6 scan K5), shows that K3's bf16
-kernel runs on the tensor cores (its HMMA instructions, and no register
-spills), holds each kernel against its plain PyTorch version on the card
-(K3 at hd 64, 128, 256 and 320, in bf16 and f32), and drives the port's
-main paths at full width, with random weights drawn from a seed:
+attention K3, the RG-LRU scan K4, the RWKV-6 scan K5) and reports each
+kernel's ptxas registers and spills; shows that K3's bf16 kernel runs on the
+tensor cores (its HMMA instructions, and no register spills); holds each
+kernel against its plain PyTorch version on the card (K3 at hd 64, 128, 256
+and 320, in bf16 and f32; K4 and K5, split over time, against twins that
+walk the same segments: K4's h and K5's s_last bit for bit, also at a
+length of many resident waves, and the same bits from two launches); and
+drives the port's main paths at full width, with random weights drawn from
+a seed:
 
 - llama3.2-1b: a bf16 prefill of 4 x 2048 tokens through K3 (hd 64);
 - recurrentgemma-2b: a bf16 prefill of 4 x 2048 through K3 (hd 256), held
@@ -31,6 +35,7 @@ device.  Any failed phase, or no GPU, exits non-zero before that last line.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -48,6 +53,7 @@ PEAK_BYTES_PER_S = 3.35e12
 
 PREFILL_B, PREFILL_S = 4, 2048
 RAGGED_S = 1000          # a sequence length no kernel tile divides
+LONG_S = 16384           # K4/K5: many more segments than one resident wave
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # K4 rounds each product and sum as its plain twin does (bit-equal
 # expected); K5 carries the same state bit for bit and sums out over k in
@@ -87,6 +93,37 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of each entry function in an ``nvcc
+    -Xptxas -v`` log, by its short name (``rwkv6_scan_kernel<64>``) where
+    those are unique, else by its mangled name."""
+    report, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            report[entry] = {}
+        elif entry and "spill stores" in line:
+            words = line.replace(",", "").split()
+            report[entry]["spill_stores"] = int(
+                words[words.index("spill") - 2])
+            report[entry]["spill_loads"] = int(words[-4])
+        elif entry and "Used" in line and "registers" in line:
+            words = line.split()
+            report[entry]["registers"] = int(words[words.index("Used") + 1])
+    short = {}
+    for entry in report:
+        # the template's name, after its length in the mangled name
+        names = [entry[i + 2:i + 2 + int(entry[i:i + 2])]
+                 for i in range(len(entry) - 1) if entry[i:i + 2].isdigit()]
+        name = next((n for n in names if n.endswith("kernel")
+                     and n[0].isalpha() and n + "I" in entry), None)
+        short[entry] = name and "{}<{}>".format(name, ",".join(
+            re.findall(r"Li(\d+)E", entry)))
+    if all(short.values()) and len(set(short.values())) == len(short):
+        return {short[e]: v for e, v in report.items()}
+    return report
 
 
 def max_err(got, want) -> float:
@@ -164,6 +201,12 @@ def main() -> int:
     logs = _build.build()
     phase("build", kernels=",".join(logs),
           seconds=f"{time.perf_counter() - t0:.1f}")
+    ptxas = {name: ptxas_report(log) for name, log in logs.items()}
+    for name in ("rglru_scan", "rwkv6_scan"):
+        phase("ptxas", kernel=name, report=json.dumps(ptxas[name]))
+        check(bool(ptxas[name]) and all("registers" in v and "spill_stores"
+                                        in v for v in ptxas[name].values()),
+              f"{name}: no ptxas registers and spills in its build log")
     entry = ""
     for name, log in logs.items():
         for line in log.splitlines():
@@ -253,40 +296,60 @@ def main() -> int:
         check(err <= tol, f"{name}: max abs err {err} > {tol}")
         del q, k, v, got, want
 
+    # K4 and K5 split time into segments; each twin walks the kernel's
+    # segments, so K4's h and K5's s_last must be bit-equal to it.  The
+    # long cases have many more segments than the card holds at once: the
+    # ticketed carry chain must make progress, and a second launch must
+    # give the same bits.
+    bits = {}
     for name, (B, S, W) in [
             ("rglru_prefill", (PREFILL_B, PREFILL_S, gcfg.lru_width)),
-            ("rglru_ragged", (PREFILL_B, RAGGED_S, gcfg.lru_width - 60))]:
+            ("rglru_ragged", (PREFILL_B, RAGGED_S, gcfg.lru_width - 60)),
+            ("rglru_long", (PREFILL_B, LONG_S, gcfg.lru_width))]:
         a, b = rglru_inputs(B, S, W)
-        got = ops.rglru_scan(a, b)
-        want = rg.rglru_scan_plain(a, b)
+        got = ops.rglru_scan(a, b, seg=rg.DEFAULT_SEG)
+        want = rg.rglru_scan_plain(a, b, seg=rg.DEFAULT_SEG)
+        again = ops.rglru_scan(a, b, seg=rg.DEFAULT_SEG)
         torch.cuda.synchronize()
         err = errs[name] = max_err(got, want)
+        bits[name] = {"bit_equal": bool(torch.equal(got, want)),
+                      "repeat_bit_equal": bool(torch.equal(got, again))}
         phase("kernel_check", kernel="rglru_scan", case=name,
-              shape=f"B{B}xS{S}xW{W}", dtype="float32",
-              max_abs_err=f"{err:.3e}", tol=RGLRU_TOL,
-              bit_equal=bool(torch.equal(got, want)))
+              shape=f"B{B}xS{S}xW{W}", dtype="float32", seg=rg.DEFAULT_SEG,
+              max_abs_err=f"{err:.3e}", tol=RGLRU_TOL, **bits[name])
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
         check(err <= RGLRU_TOL, f"{name}: max abs err {err} > {RGLRU_TOL}")
-        del a, b, got, want
+        check(all(bits[name].values()), f"{name}: h not bit-equal {bits}")
+        del a, b, got, want, again
 
     for name, (B, S, H, hd) in [
             ("rwkv_prefill", (PREFILL_B, PREFILL_S, *rwkv_heads)),
-            ("rwkv_ragged", (PREFILL_B, RAGGED_S, *rwkv_heads))]:
+            ("rwkv_ragged", (PREFILL_B, RAGGED_S, *rwkv_heads)),
+            ("rwkv_long", (PREFILL_B, LONG_S, *rwkv_heads))]:
         ins = rwkv_inputs(B, S, H, hd)
-        out, s_last = ops.rwkv6_scan(*ins)
-        want, s_want = rw.rwkv6_scan_plain(*ins)
+        out, s_last = ops.rwkv6_scan(*ins, seg=rw.DEFAULT_SEG)
+        want, s_want = rw.rwkv6_scan_plain(*ins, seg=rw.DEFAULT_SEG)
+        out2, s_last2 = ops.rwkv6_scan(*ins, seg=rw.DEFAULT_SEG)
         torch.cuda.synchronize()
         out_err, s_err = max_err(out, want), max_err(s_last, s_want)
         err = errs[name] = max(out_err, s_err)
+        bits[name] = {"bit_equal": bool(torch.equal(s_last, s_want)),
+                      "repeat_bit_equal": bool(torch.equal(out, out2)
+                                               and torch.equal(s_last,
+                                                               s_last2))}
         phase("kernel_check", kernel="rwkv6_scan", case=name,
               shape=f"B{B}xS{S}xH{H}xhd{hd}", dtype="float32",
-              out_max_abs_err=f"{out_err:.3e}",
+              seg=rw.DEFAULT_SEG, out_max_abs_err=f"{out_err:.3e}",
               s_last_max_abs_err=f"{s_err:.3e}",
-              out_max_abs=f"{want.abs().max().item():.3e}", tol=RWKV_TOL)
+              out_max_abs=f"{want.abs().max().item():.3e}", tol=RWKV_TOL,
+              **bits[name])
         check(bool(torch.isfinite(out).all() and torch.isfinite(s_last).all()),
               f"{name}: non-finite output")
         check(err <= RWKV_TOL, f"{name}: max abs err {err} > {RWKV_TOL}")
-        del ins, out, s_last, want, s_want
+        check(all(bits[name].values()),
+              f"{name}: s_last not bit-equal {bits}")
+        del ins, out, s_last, want, s_want, out2, s_last2
+    torch.cuda.empty_cache()
 
     # 4. full-width bf16 prefills: the main paths through K3 ----------------
     tokens = torch.randint(0, 65536, (PREFILL_B, PREFILL_S), generator=gen,
@@ -465,33 +528,52 @@ def main() -> int:
     attn_gemma3 = attention_times(PREFILL_B, PREFILL_S, *gemma3_attn,
                                   gemma3_window)
 
+    # K4 and K5 at the prefill shape, at their default segment length and
+    # at the others the kernels take (the sweep the defaults come from)
+    def scan_sweep(kernel, fn, segs, iters):
+        sweep = {seg: cuda_time_ms(lambda: fn(seg), iters) for seg in segs}
+        phase("kernel_sweep", kernel=kernel,
+              ms={seg: f"{ms:.4f}" for seg, ms in sweep.items()})
+        return sweep
+
     a, b = rglru_inputs(PREFILL_B, PREFILL_S, gcfg.lru_width)
+    rglru_shape = f"B{PREFILL_B}xS{PREFILL_S}xW{gcfg.lru_width}"
+    rglru_sweep = scan_sweep(
+        "rglru_scan", lambda seg: ops.rglru_scan(a, b, seg=seg),
+        (4, 8, rg.DEFAULT_SEG, rg.MAX_SEG), 20)
     rglru_ms = cuda_time_ms(lambda: ops.rglru_scan(a, b), 20)
     rglru_plain_ms = cuda_time_ms(lambda: rg.rglru_scan_plain(a, b), 3,
                                   warmup=1)
     rglru_bound = bound(rg.scan_flops(a), rg.scan_bytes(a), torch.float32)
-    phase("kernel_time", kernel="rglru_scan",
-          shape=f"B{PREFILL_B}xS{PREFILL_S}xW{gcfg.lru_width}",
-          dtype="float32", ms=f"{rglru_ms:.4f}",
+    rglru_scratch = sum(4 * n for n in rg.scratch_shape(
+        PREFILL_B, PREFILL_S, gcfg.lru_width, rg.DEFAULT_SEG))
+    phase("kernel_time", kernel="rglru_scan", shape=rglru_shape,
+          dtype="float32", seg=rg.DEFAULT_SEG, ms=f"{rglru_ms:.4f}",
           plain_ms=f"{rglru_plain_ms:.4f}", library_ms=None,
           flops=rg.scan_flops(a), bytes=rg.scan_bytes(a),
-          bound_ms=f"{rglru_bound[0]:.4f}", bound_by=rglru_bound[1],
+          scratch_bytes=rglru_scratch, bound_ms=f"{rglru_bound[0]:.4f}",
+          bound_by=rglru_bound[1],
           roofline_share=f"{rglru_bound[0] / rglru_ms:.4f}")
     del a, b
 
     ins = rwkv_inputs(PREFILL_B, PREFILL_S, *rwkv_heads)
     rwkv_shape = "B{}xS{}xH{}xhd{}".format(PREFILL_B, PREFILL_S, *rwkv_heads)
+    rwkv_sweep = scan_sweep(
+        "rwkv6_scan", lambda seg: ops.rwkv6_scan(*ins, seg=seg),
+        (16, 32, rw.DEFAULT_SEG, 128), 10)
     rwkv_ms = cuda_time_ms(lambda: ops.rwkv6_scan(*ins), 10)
     rwkv_plain_ms = cuda_time_ms(lambda: rw.rwkv6_scan_plain(*ins), 2,
                                  warmup=1)
     rwkv_bound = bound(rw.scan_flops(ins[0]), rw.scan_bytes(ins[0]),
                        torch.float32)
+    rwkv_scratch = sum(4 * n for n in rw.scratch_shape(
+        PREFILL_B, PREFILL_S, *rwkv_heads, rw.DEFAULT_SEG))
     phase("kernel_time", kernel="rwkv6_scan",
-          shape=rwkv_shape, dtype="float32",
+          shape=rwkv_shape, dtype="float32", seg=rw.DEFAULT_SEG,
           ms=f"{rwkv_ms:.4f}", plain_ms=f"{rwkv_plain_ms:.4f}",
           library_ms=None, flops=rw.scan_flops(ins[0]),
-          bytes=rw.scan_bytes(ins[0]), bound_ms=f"{rwkv_bound[0]:.4f}",
-          bound_by=rwkv_bound[1],
+          bytes=rw.scan_bytes(ins[0]), scratch_bytes=rwkv_scratch,
+          bound_ms=f"{rwkv_bound[0]:.4f}", bound_by=rwkv_bound[1],
           roofline_share=f"{rwkv_bound[0] / rwkv_ms:.4f}")
     del ins
 
@@ -515,20 +597,26 @@ def main() -> int:
          "launches": sum(launches["rglru_scan"].values()),
          "launches_by_path": launches["rglru_scan"],
          "max_abs_err": errs["rglru_prefill"],
-         "shape": f"B{PREFILL_B}xS{PREFILL_S}xW{gcfg.lru_width}",
+         "shape": rglru_shape, "seg": rg.DEFAULT_SEG,
          "ms": rglru_ms, "plain_ms": rglru_plain_ms,
          "bound_ms": rglru_bound[0], "bound_by": rglru_bound[1],
-         "library_ms": None, "library_note": no_library},
+         "library_ms": None, "library_note": no_library,
+         "sweep_ms": rglru_sweep, "scratch_bytes": rglru_scratch,
+         "ptxas": ptxas["rglru_scan"],
+         **{case: bits[case] for case in bits if case.startswith("rglru")}},
         {"name": "rwkv6_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/rwkv6_scan.cu",
          "replaces": "src/repro/kernels/rwkv6_scan.py:52",
          "launches": sum(launches["rwkv6_scan"].values()),
          "launches_by_path": launches["rwkv6_scan"],
          "max_abs_err": errs["rwkv_prefill"],
-         "shape": rwkv_shape,
+         "shape": rwkv_shape, "seg": rw.DEFAULT_SEG,
          "ms": rwkv_ms, "plain_ms": rwkv_plain_ms,
          "bound_ms": rwkv_bound[0], "bound_by": rwkv_bound[1],
-         "library_ms": None, "library_note": no_library},
+         "library_ms": None, "library_note": no_library,
+         "sweep_ms": rwkv_sweep, "scratch_bytes": rwkv_scratch,
+         "ptxas": ptxas["rwkv6_scan"],
+         **{case: bits[case] for case in bits if case.startswith("rwkv")}},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

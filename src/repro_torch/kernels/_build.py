@@ -60,14 +60,17 @@ def cuda_tool(tool: str) -> str:
 def build(names=None) -> dict[str, str]:
     """Compile the named kernels (all registered ones by default) with one
     ``nvcc`` each, all started together.  Returns each kernel's ptxas
-    report; raises if any build fails."""
+    report, kept beside its library for a later run that finds it built (a
+    library found without its report is built again); raises if any build
+    fails."""
     names = list(_KERNELS) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         out = library_path(name)
-        if out.exists():
-            BUILD_LOGS.setdefault(name, f"{out.name}: already built")
+        log = out.with_suffix(".log")
+        if out.exists() and log.exists():
+            BUILD_LOGS.setdefault(name, log.read_text())
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
@@ -83,6 +86,7 @@ def build(names=None) -> dict[str, str]:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
         else:
             os.replace(tmp, out)
+            out.with_suffix(".log").write_text(log)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return {n: BUILD_LOGS[n] for n in names}

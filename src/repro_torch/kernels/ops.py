@@ -28,25 +28,26 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return out
 
 
-def rglru_scan(a, b, *, bs: int = _rg.DEFAULT_BS, bw: int = _rg.DEFAULT_BW):
+def rglru_scan(a, b, *, seg: int = _rg.DEFAULT_SEG):
     """a, b: [B, S, W] f32 recurrence coefficients -> h [B, S, W] f32.
 
-    ``bs`` is the plain version's chunk of time steps, ``bw`` the kernel's
-    channels per CTA."""
+    ``seg``, the time steps per segment, sets the split-over-time schedule
+    that the kernel and its plain twin both follow (:mod:`.rglru_scan`)."""
     if a.device.type == "cpu":
-        return _rg.rglru_scan_plain(a, b, bs=bs)
-    h = _rg.rglru_scan_cuda(a, b, bw=bw)
+        return _rg.rglru_scan_plain(a, b, seg=seg)
+    h = _rg.rglru_scan_cuda(a, b, seg=seg)
     rglru_scan.launches += 1
     return h
 
 
-def rwkv6_scan(r, k, v, w, u, *, bs: int = _rw.DEFAULT_BS):
+def rwkv6_scan(r, k, v, w, u, *, seg: int = _rw.DEFAULT_SEG):
     """r,k,v,w: [B, S, H, hd] f32; u: [H, hd].  Returns (out, s_last) with
-    out [B, S, H, hd], s_last [B, H, hd, hd].  ``bs`` is the plain
-    version's chunk of time steps."""
+    out [B, S, H, hd], s_last [B, H, hd, hd].  ``seg``, the tokens per
+    segment, sets the schedule that the kernel and its plain twin both
+    follow (:mod:`.rwkv6_scan`)."""
     if r.device.type == "cpu":
-        return _rw.rwkv6_scan_plain(r, k, v, w, u, bs=bs)
-    out = _rw.rwkv6_scan_cuda(r, k, v, w, u)
+        return _rw.rwkv6_scan_plain(r, k, v, w, u, seg=seg)
+    out = _rw.rwkv6_scan_cuda(r, k, v, w, u, seg=seg)
     rwkv6_scan.launches += 1
     return out
 

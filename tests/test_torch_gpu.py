@@ -150,23 +150,43 @@ def _randn(gen, shape, device):
     return torch.randn(shape, generator=gen, device=device)
 
 
-@pytest.mark.parametrize("B,S,W,bw", [
-    (4, 256, 2560, rg.DEFAULT_BW),
-    (2, 1000, 2500, rg.DEFAULT_BW),     # ragged S and W
-    (1, 37, 70, 32),
-    (3, 5, 3, 1024),
+def _rglru_inputs(gen, B, S, W, device):
+    a = torch.rand((B, S, W), generator=gen, device=device) * 0.499 + 0.5
+    return a, _randn(gen, (B, S, W), device)
+
+
+# K4's h and K5's s_last round as their plain twins do, on the twins' own
+# schedule: they must be bit-equal; K5's out sums over k in another order
+# and is held at the JAX package's kernel tolerance.
+@pytest.mark.parametrize("B,S,W,seg", [
+    (4, 256, 2560, rg.DEFAULT_SEG),
+    (2, 1000, 2500, rg.DEFAULT_SEG),    # ragged S and W
+    (1, 37, 70, 7),
+    (3, 5, 3, 32),
+    (2, 1, 64, rg.DEFAULT_SEG),         # S = 1
+    (1, 11, 100, rg.DEFAULT_SEG),       # S under one segment
+    (2, 300, 33, 1),                    # one step a segment
+    (2, 4099, 130, 5),                  # ragged everywhere
+    (2, 20000, 2560, rg.DEFAULT_SEG),   # a grid of many resident waves
 ])
-def test_rglru_kernel_matches_plain(cuda, B, S, W, bw):
+def test_rglru_kernel_matches_plain(cuda, B, S, W, seg):
     gen = torch.Generator(device=cuda).manual_seed(S + W)
-    a = torch.rand((B, S, W), generator=gen, device=cuda) * 0.499 + 0.5
-    b = _randn(gen, (B, S, W), cuda)
+    a, b = _rglru_inputs(gen, B, S, W, cuda)
     before = ops.rglru_scan.launches
-    h = ops.rglru_scan(a, b, bw=bw)
+    h = ops.rglru_scan(a, b, seg=seg)
     torch.cuda.synchronize()
     assert ops.rglru_scan.launches == before + 1
-    want = rg.rglru_scan_plain(a, b)
+    want = rg.rglru_scan_plain(a, b, seg=seg)
     np.testing.assert_allclose(h.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-5, atol=1e-5)
+    assert torch.equal(h, want)
+
+
+def test_rglru_kernel_gives_the_same_bits_twice(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    a, b = _rglru_inputs(gen, 4, 16384, 2560, cuda)
+    first = ops.rglru_scan(a, b)
+    assert torch.equal(first, ops.rglru_scan(a, b))
 
 
 def test_rglru_kernel_reads_strided_inputs(cuda):
@@ -178,6 +198,7 @@ def test_rglru_kernel_reads_strided_inputs(cuda):
     want = rg.rglru_scan_plain(a.contiguous(), b.contiguous())
     np.testing.assert_allclose(h.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-5, atol=1e-5)
+    assert torch.equal(h, want)
 
 
 def test_rglru_kernel_rejects_what_it_does_not_take(cuda):
@@ -186,8 +207,10 @@ def test_rglru_kernel_rejects_what_it_does_not_take(cuda):
         ops.rglru_scan(a.bfloat16(), a.bfloat16())
     with pytest.raises(ValueError, match="contiguous"):
         ops.rglru_scan(a.transpose(1, 2), a.transpose(1, 2))
-    with pytest.raises(ValueError, match="bw"):
-        ops.rglru_scan(a, a, bw=2048)
+    with pytest.raises(ValueError, match="seg"):
+        ops.rglru_scan(a, a, seg=rg.MAX_SEG + 1)
+    with pytest.raises(ValueError, match="seg"):
+        ops.rglru_scan(a, a, seg=0)
 
 
 def _rwkv_inputs(gen, B, S, H, hd, device):
@@ -197,41 +220,58 @@ def _rwkv_inputs(gen, B, S, H, hd, device):
     return r, k, v, w, u
 
 
-@pytest.mark.parametrize("B,S,H,hd", [
-    (2, 256, 40, 64),
-    (1, 1000, 4, 64),       # ragged: the JAX wrapper would pad a tail
-    (2, 48, 2, 16),
-    (1, 24, 2, 8),
-    (1, 33, 3, 32),
+@pytest.mark.parametrize("B,S,H,hd,seg", [
+    (2, 256, 40, 64, rw.DEFAULT_SEG),
+    (1, 1000, 4, 64, rw.DEFAULT_SEG),   # ragged: the JAX wrapper would pad
+    (2, 48, 2, 16, 16),
+    (1, 24, 2, 8, 7),
+    (1, 33, 3, 32, 5),
+    (2, 1, 3, 64, rw.DEFAULT_SEG),      # S = 1
+    (1, 0, 2, 16, 4),                   # S = 0: s_last is zero
+    (1, 50, 2, 64, rw.DEFAULT_SEG),     # S under one segment
+    (1, 130, 2, 32, 1),                 # one token a segment
+    (2, 8192, 40, 64, rw.DEFAULT_SEG),  # a grid of many resident waves
 ])
-def test_rwkv6_kernel_matches_plain(cuda, B, S, H, hd):
+def test_rwkv6_kernel_matches_plain(cuda, B, S, H, hd, seg):
     gen = torch.Generator(device=cuda).manual_seed(S + hd)
     ins = _rwkv_inputs(gen, B, S, H, hd, cuda)
     before = ops.rwkv6_scan.launches
-    out, s_last = ops.rwkv6_scan(*ins)
+    out, s_last = ops.rwkv6_scan(*ins, seg=seg)
     torch.cuda.synchronize()
     assert ops.rwkv6_scan.launches == before + 1
-    want, s_want = rw.rwkv6_scan_plain(*ins)
+    want, s_want = rw.rwkv6_scan_plain(*ins, seg=seg)
     np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(s_last.cpu().numpy(), s_want.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
+    assert torch.equal(s_last, s_want)
 
 
-def test_rwkv6_kernel_reads_strided_inputs(cuda):
-    """r, k, v, w as slices of one fused [B, S, H, 4 hd] tensor."""
+def test_rwkv6_kernel_gives_the_same_bits_twice(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    ins = _rwkv_inputs(gen, 4, 16384, 40, 64, cuda)
+    out, s_last = ops.rwkv6_scan(*ins)
+    out2, s_last2 = ops.rwkv6_scan(*ins)
+    assert torch.equal(out, out2) and torch.equal(s_last, s_last2)
+
+
+@pytest.mark.parametrize("off", [0, 1])
+def test_rwkv6_kernel_reads_strided_inputs(cuda, off):
+    """r, k, v, w as slices of one fused [B, S, H, 4 hd + 4] tensor; at
+    ``off`` 1 their rows do not start on 16 bytes."""
     gen = torch.Generator(device=cuda).manual_seed(2)
-    fused = _randn(gen, (2, 70, 3, 4 * 16), cuda)
+    fused = _randn(gen, (2, 70, 3, 4 * 16 + 4), cuda)[..., off:off + 64]
     r, k, v = (fused[..., i * 16:(i + 1) * 16] for i in range(3))
     w = torch.sigmoid(fused[..., 48:])
     u = _randn(gen, (3, 16), cuda) * 0.1
-    out, s_last = ops.rwkv6_scan(r, k, v, w, u)
+    out, s_last = ops.rwkv6_scan(r, k, v, w, u, seg=16)
     want, s_want = rw.rwkv6_scan_plain(*(t.contiguous()
-                                         for t in (r, k, v, w, u)))
+                                         for t in (r, k, v, w, u)), seg=16)
     np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(s_last.cpu().numpy(), s_want.cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
+    assert torch.equal(s_last, s_want)
 
 
 def test_rwkv6_kernel_rejects_what_it_does_not_take(cuda):
@@ -244,6 +284,8 @@ def test_rwkv6_kernel_rejects_what_it_does_not_take(cuda):
         ops.rwkv6_scan(*(t.bfloat16() for t in ins))
     with pytest.raises(ValueError, match="u"):
         ops.rwkv6_scan(*ins[:4], ins[4][:1])
+    with pytest.raises(ValueError, match="seg"):
+        ops.rwkv6_scan(*ins, seg=rw.max_seg(16) + 1)
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b"])

@@ -73,8 +73,8 @@ def test_rglru_scan_matches_jax(B, S, W, bs, bw):
     want_ref = jref.rglru_scan_ref(jnp.asarray(a), jnp.asarray(b))
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)
     before = tops.rglru_scan.launches
-    outs = {"ops": tops.rglru_scan(ta, tb, bs=bs, bw=bw),
-            "plain": trg.rglru_scan_plain(ta, tb, bs=bs),
+    outs = {"ops": tops.rglru_scan(ta, tb, seg=bs),
+            "plain": trg.rglru_scan_plain(ta, tb, seg=bs),
             "ref": tref.rglru_scan_ref(ta, tb)}
     assert tops.rglru_scan.launches == before        # CPU: plain path only
     for name, out in outs.items():
@@ -104,8 +104,8 @@ def test_rwkv6_scan_matches_jax(B, S, H, hd, bs):
     want_ref = jref.rwkv6_scan_ref(*jins)
     tins = [torch.from_numpy(x) for x in ins]
     before = tops.rwkv6_scan.launches
-    outs = {"ops": tops.rwkv6_scan(*tins, bs=bs),
-            "plain": trw.rwkv6_scan_plain(*tins, bs=bs),
+    outs = {"ops": tops.rwkv6_scan(*tins, seg=bs),
+            "plain": trw.rwkv6_scan_plain(*tins, seg=bs),
             "ref": tref.rwkv6_scan_ref(*tins)}
     assert tops.rwkv6_scan.launches == before
     for name, (out, s_last) in outs.items():
@@ -114,6 +114,101 @@ def test_rwkv6_scan_matches_jax(B, S, H, hd, bs):
         for want, s_want in (want_kernel, want_ref):
             _close(out, want, 1e-4, name)
             _close(s_last, s_want, 1e-4, name + " s_last")
+
+
+# The twins walk the kernels' split-over-time schedule: aggregate each
+# segment, carry in segment order, walk again.  Segment lengths: one step,
+# 7 and 16 (S = 50 leaves a short last segment), 10 and 25 (S a multiple),
+# S itself and more (one segment).
+SEGS = (1, 7, 10, 16, 25, 50, 64)
+
+
+@pytest.mark.parametrize("seg", SEGS)
+def test_rglru_twin_follows_its_schedule(seg):
+    B, S, W = 2, 50, 24
+    rng = np.random.default_rng(seg)
+    a = rng.uniform(0.5, 0.999, (B, S, W)).astype(np.float32)
+    b = rng.standard_normal((B, S, W)).astype(np.float32)
+    want_kernel = jops.rglru_scan(jnp.asarray(a), jnp.asarray(b), bs=16,
+                                  bw=8, interpret=True)
+    want_ref = jref.rglru_scan_ref(jnp.asarray(a), jnp.asarray(b))
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    got = trg.rglru_scan_plain(ta, tb, seg=seg)
+    assert torch.equal(tops.rglru_scan(ta, tb, seg=seg), got)
+    for want in (want_kernel, want_ref):
+        _close(got, want, 1e-5, f"seg {seg}")
+
+
+def _rwkv_decays(kind, rng, shape):
+    if kind == "uniform":
+        return rng.uniform(0.8, 0.999, shape).astype(np.float32)
+    if kind == "near_zero":
+        return rng.uniform(0.0, 1e-3, shape).astype(np.float32)
+    # the model's decay form, w = exp(-exp(z)), over its whole clip range
+    z = rng.uniform(-8.0, 4.0, shape)
+    return np.exp(-np.exp(z)).astype(np.float32)
+
+
+@pytest.mark.parametrize("decay", ["uniform", "near_zero", "exp_exp"])
+@pytest.mark.parametrize("seg", SEGS)
+def test_rwkv6_twin_follows_its_schedule(seg, decay):
+    """Also under decays the chunked form's clip cannot take: w near 0
+    (a segment's product of decays underflows) and w = exp(-exp(z)) for z
+    up to its clip at 4."""
+    B, S, H, hd = 1, 50, 2, 16
+    r, k, v, _, u = _rwkv_inputs(seg, B, S, H, hd)
+    w = _rwkv_decays(decay, np.random.default_rng(seg + 1), (B, S, H, hd))
+    jins = [jnp.asarray(x) for x in (r, k, v, w, u)]
+    tins = [torch.from_numpy(x) for x in (r, k, v, w, u)]
+    got, s_got = trw.rwkv6_scan_plain(*tins, seg=seg)
+    ops_out, ops_s = tops.rwkv6_scan(*tins, seg=seg)
+    assert torch.equal(ops_out, got) and torch.equal(ops_s, s_got)
+    for want, s_want in (jops.rwkv6_scan(*jins, bs=16, interpret=True),
+                         jref.rwkv6_scan_ref(*jins)):
+        _close(got, want, 1e-4, f"seg {seg}")
+        _close(s_got, s_want, 1e-4, f"seg {seg} s_last")
+
+
+@pytest.mark.parametrize("S", [1, 9, 40])
+def test_scan_twins_with_one_segment_are_the_sequential_recurrence(S):
+    rng = np.random.default_rng(S)
+    a = torch.from_numpy(rng.uniform(0.5, 0.999, (2, S, 12))
+                         .astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((2, S, 12)).astype(np.float32))
+    h, want = torch.zeros((2, 12)), torch.empty((2, S, 12))
+    for t in range(S):
+        h = a[:, t] * h + b[:, t]
+        want[:, t] = h
+    for seg in (S, S + 5):
+        assert torch.equal(trg.rglru_scan_plain(a, b, seg=seg), want)
+    tins = [torch.from_numpy(x) for x in _rwkv_inputs(S, 2, S, 3, 8)]
+    out, s_last = tref.rwkv6_scan_ref(*tins)
+    for seg in (S, S + 5):
+        got, s_got = trw.rwkv6_scan_plain(*tins, seg=seg)
+        assert torch.equal(got, out) and torch.equal(s_got, s_last)
+
+
+def test_scan_twins_take_no_empty_segment():
+    a = torch.zeros((1, 4, 2))
+    with pytest.raises(ValueError, match="seg"):
+        trg.rglru_scan_plain(a, a, seg=0)
+    r = torch.zeros((1, 4, 1, 8))
+    with pytest.raises(ValueError, match="seg"):
+        trw.rwkv6_scan_plain(r, r, r, r, torch.zeros((1, 8)), seg=0)
+
+
+def test_scan_scratch_shapes():
+    """The kernels' scratch at the prefill shapes: a ticket and a flag per
+    chain, a carry per block boundary."""
+    # K4: 4 x 80 chains of 32 channels, 2048 / (8 x 16) = 16 blocks
+    assert trg.scratch_shape(4, 2048, 2560, 16) == (1 + 320, 320 * 15 * 32)
+    assert trg.scratch_shape(1, 100, 33, 16) == (1 + 2, 0)
+    # K5: 160 (b, h) chains of 32 segments of 64; 81 MB of carried states
+    assert trw.scratch_shape(4, 2048, 40, 64, 64) == (161, 160 * 31 * 4096)
+    assert trw.scratch_shape(1, 0, 2, 16, 4) == (3, 0)
+    assert trw.smem_bytes(64, 64) == 4 * (64 * (4 * 68 + 1) + 65)
+    assert trw.smem_bytes(64, trw.max_seg(64)) <= 232_448
+    assert trw.smem_bytes(64, trw.max_seg(64) + 1) > 232_448
 
 
 def test_scan_byte_and_flop_counts():
