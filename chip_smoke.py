@@ -5,16 +5,19 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel of the port from the checkout's sources (flash
-attention K3, the RG-LRU scan K4, the RWKV-6 scan K5) and reports each
-kernel's ptxas registers and spills; shows that K3's bf16 kernel runs on the
+It builds every CUDA kernel of the port from the checkout's sources (the
+Hanoi step machine K1, flash attention K3, the RG-LRU scan K4, the RWKV-6
+scan K5) and reports each kernel's ptxas registers and spills; shows that K3's bf16 kernel runs on the
 tensor cores (its HMMA instructions, and no register spills); holds each
 kernel against its plain PyTorch version on the card (K3 at hd 64, 128, 256
 and 320, in bf16 and f32; K4 and K5, split over time, against twins that
 walk the same segments: K4's h and K5's s_last bit for bit, also at a
-length of many resident waves, and the same bits from two launches); and
-drives the port's main paths at full width, with random weights drawn from
-a seed:
+length of many resident waves, and the same bits from two launches; K1
+against its plain twin bit for bit in every field of the simulator's
+state, at 4, 8 and 32 threads, 2 and 8 Bx registers, majority-first on and
+off, with oracle skips, over the paper's figures, the spinlock and the
+suite); and drives the port's main paths at full width, with random
+weights or data drawn from a seed:
 
 - llama3.2-1b: a bf16 prefill of 4 x 2048 tokens through K3 (hd 64);
 - recurrentgemma-2b: a bf16 prefill of 4 x 2048 through K3 (hd 256), held
@@ -23,7 +26,15 @@ a seed:
 - rwkv6-3b: a bf16 prefill of 4 x 2048 through the per-token wkv scan, held
   against the chunked form, and layer 0's time mix with ``use_kernel=True``
   through K5, held against the scan;
-- ``serve`` of 4 requests on each of the three models, in f32.
+- ``serve`` of 4 requests on each of the three models, in f32;
+- the simulator: ``Simulator.run_batch(mechanism="hanoi_torch")`` over
+  8,448 simulated warps (one full residency of the card, 132 SMs x 64
+  warps; the suite's 23 programs in turn, each warp with its own memory)
+  at the paper's evaluation config, in one launch of K1, every warp held
+  to the twin and one warp of each program to the numpy ``run_hanoi``;
+  then Fig 9 through ``compare``: ``hanoi_torch`` against ``hanoi``
+  (discrepancy 0) and against ``turing_oracle`` (the numpy ``hanoi``'s
+  discrepancies, row for row).
 
 Every kernel's launch count is set to 0 just before each path and read just
 after it; a path that launches a kernel another number of times than it
@@ -34,6 +45,7 @@ device.  Any failed phase, or no GPU, exits non-zero before that last line.
 """
 from __future__ import annotations
 
+import collections
 import json
 import re
 import subprocess
@@ -41,6 +53,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -68,6 +81,12 @@ PREFILL_LOGITS_RTOL = {torch.bfloat16: 5e-2, torch.float32: 1e-3}
 # weights: the log-depth RG-LRU scan and the per-token wkv scan round in
 # other orders than the kernels
 LAYER_TOL = 1e-4
+# the simulator's full-size batch: one full residency of an H100 (132 SMs x
+# 64 warps), and the paper's evaluation config (Simulator.compare's default)
+SIM_WARPS = 132 * 64
+# one dependent shared-memory round trip a scheduler slot, at the data
+# sheet's 1.98 GHz boost clock: the latency half of K1's bound
+SLOT_CYCLES, CLOCK_HZ = 30, 1.98e9
 
 
 def phase(name: str, **fields) -> None:
@@ -97,8 +116,8 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 def ptxas_report(log: str) -> dict:
     """Registers and spill bytes of each entry function in an ``nvcc
-    -Xptxas -v`` log, by its short name (``rwkv6_scan_kernel<64>``) where
-    those are unique, else by its mangled name."""
+    -Xptxas -v`` log, by its short name (``rwkv6_scan_kernel<64>``,
+    ``hanoi_kernel``) where those are unique, else by its mangled name."""
     report, entry = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -118,9 +137,12 @@ def ptxas_report(log: str) -> dict:
         names = [entry[i + 2:i + 2 + int(entry[i:i + 2])]
                  for i in range(len(entry) - 1) if entry[i:i + 2].isdigit()]
         name = next((n for n in names if n.endswith("kernel")
-                     and n[0].isalpha() and n + "I" in entry), None)
-        short[entry] = name and "{}<{}>".format(name, ",".join(
-            re.findall(r"Li(\d+)E", entry)))
+                     and n[0].isalpha() and (n + "I" in entry
+                                             or n + "E" in entry)), None)
+        if name and name + "I" in entry:        # a template's instance
+            name = "{}<{}>".format(name, ",".join(
+                re.findall(r"Li(\d+)E", entry)))
+        short[entry] = name
     if all(short.values()) and len(set(short.values())) == len(short):
         return {short[e]: v for e, v in report.items()}
     return report
@@ -147,7 +169,15 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
+    from repro_torch.core import hanoi as hanoi_core
+    from repro_torch.core import interp, programs
+    from repro_torch.core.isa import MachineConfig
+    from repro_torch.engine import SimRequest, Simulator, as_request
+    from repro_torch.engine import get_mechanism
+    from repro_torch.service.planner import plan_dispatch
+    from repro_torch.engine.adapters import _batch_arrays, padded_len
     from repro_torch.kernels import _build
+    from repro_torch.kernels import hanoi_step as hs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import rglru_scan as rg
@@ -163,7 +193,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     counters = {"flash_attention": ops.flash_attention,
-                "rglru_scan": ops.rglru_scan, "rwkv6_scan": ops.rwkv6_scan}
+                "rglru_scan": ops.rglru_scan, "rwkv6_scan": ops.rwkv6_scan,
+                "hanoi_run": ops.hanoi_run}
     launches = {name: {} for name in counters}     # kernel -> path -> count
 
     def run_path(path: str, fn, expect: dict):
@@ -202,7 +233,7 @@ def main() -> int:
     phase("build", kernels=",".join(logs),
           seconds=f"{time.perf_counter() - t0:.1f}")
     ptxas = {name: ptxas_report(log) for name, log in logs.items()}
-    for name in ("rglru_scan", "rwkv6_scan"):
+    for name in ("rglru_scan", "rwkv6_scan", "hanoi_step"):
         phase("ptxas", kernel=name, report=json.dumps(ptxas[name]))
         check(bool(ptxas[name]) and all("registers" in v and "spill_stores"
                                         in v for v in ptxas[name].values()),
@@ -351,6 +382,70 @@ def main() -> int:
         del ins, out, s_last, want, s_want, out2, s_last2
     torch.cuda.empty_cache()
 
+    # K1 against its twin on the same operands, bit for bit in every field
+    # of the state: the figures, the spinlock and the suite (also with every
+    # BSYNC an oracle skip), at 4, 8 and 32 threads; 8 Bx registers with
+    # majority-first, 2 without.  Two launches must give the same bits.
+    def hanoi_operands(reqs, cfg, skip_pcs=None):
+        L = padded_len(max(r.program.shape[0] for r in reqs))
+        arrays = _batch_arrays(reqs, cfg, L)
+        for i, pcs in enumerate(skip_pcs or ()):
+            arrays[1][i, list(pcs)] = True
+        return L, [torch.from_numpy(a).to(dev) for a in arrays]
+
+    def state_diff(a, b):
+        """The fields in which two states differ, and the largest
+        difference there."""
+        bad, err = [], 0
+        for k in hanoi_core.HanoiState._fields:
+            x, y = getattr(a, k), getattr(b, k)
+            if not torch.equal(x, y):
+                bad.append(k)
+                err = max(err, (x.long() - y.long()).abs().max().item())
+        return bad, err
+
+    k1_checks = {}
+    for W in (4, 8, 32):
+        for n_bx, majority in ((8, True), (2, False)):
+            cfg = MachineConfig(n_threads=W, n_bx=n_bx, max_steps=4096)
+            reqs, skip_pcs = [], []
+            for prog in (programs.fig5_program(), programs.fig6_program(),
+                         programs.warpsync_program(W),
+                         programs.spinlock_program()):
+                reqs.append(SimRequest(program=prog, cfg=cfg))
+                skip_pcs.append(())
+            for b in programs.make_suite(cfg):
+                bsyncs = np.flatnonzero(b.program[:, 0] == 4).tolist()
+                for pcs in (b.skip_bsync_pcs, bsyncs):   # and every BSYNC
+                    reqs.append(SimRequest(program=b.program, cfg=cfg,
+                                           init_mem=b.init_mem))
+                    skip_pcs.append(pcs)
+            _, ins = hanoi_operands(reqs, cfg, skip_pcs)
+            got = ops.hanoi_run(*ins, cfg, majority_first=majority)
+            again = ops.hanoi_run(*ins, cfg, majority_first=majority)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = hanoi_core.hanoi_run_plain(*ins, cfg,
+                                              majority_first=majority)
+            torch.cuda.synchronize()
+            twin_s = time.perf_counter() - t0
+            bad, err = state_diff(got, want)
+            repeat_bad, _ = state_diff(got, again)
+            case = f"w{W}_bx{n_bx}_{'majority' if majority else 'minority'}"
+            k1_checks[case] = {"bit_equal": not bad,
+                               "repeat_bit_equal": not repeat_bad,
+                               "max_abs_err": err}
+            phase("kernel_check", kernel="hanoi_step", case=case,
+                  warps=len(reqs), longest_warp_slots=int(
+                      (cfg.max_steps - want.fuel).max()),
+                  twin_s=f"{twin_s:.2f}", differing_fields=bad,
+                  **k1_checks[case])
+            check(not bad, f"K1 {case}: {bad} differ from the twin")
+            check(not repeat_bad, f"K1 {case}: a second launch differs "
+                  f"in {repeat_bad}")
+            del ins, got, again, want
+    torch.cuda.empty_cache()
+
     # 4. full-width bf16 prefills: the main paths through K3 ----------------
     tokens = torch.randint(0, 65536, (PREFILL_B, PREFILL_S), generator=gen,
                            device=dev)
@@ -489,6 +584,130 @@ def main() -> int:
               f"{arch} serve tokens out of the vocabulary")
         torch.cuda.empty_cache()
 
+    # 5b. the simulator at full size: one launch of K1 through run_batch ----
+    sim_cfg = MachineConfig(n_threads=32, mem_size=256, max_steps=60_000)
+    suite = programs.make_suite(sim_cfg)
+    # warp w runs the suite's program w mod 23 on memory drawn by the
+    # suite's own generator from SEED + w.  A program the suite runs on
+    # zeroed memory (the spinlock, CALLS, the figures) keeps it: a spinlock
+    # whose lock word starts taken spins until its 60,000 slots are spent.
+    reqs = [SimRequest(program=b.program, cfg=sim_cfg, name=b.name,
+                       init_mem=None if b.init_mem is None
+                       else programs._mem(sim_cfg, SEED + w))
+            for w, b in ((w, suite[w % len(suite)])
+                         for w in range(SIM_WARPS))]
+    sim = Simulator()
+    warm = sim.run_batch(reqs[:len(suite)], mechanism="hanoi_torch")
+    results, sim_wall, got = run_path(
+        "simulator run_batch",
+        lambda: sim.run_batch(reqs, mechanism="hanoi_torch"),
+        {"hanoi_run": 1})
+    check(len(results) == SIM_WARPS, "run_batch lost results")
+    L, ins = hanoi_operands(reqs, sim_cfg)
+    k1_state = ops.hanoi_run(*ins, sim_cfg)       # the kernel's whole state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    twin = hanoi_core.hanoi_run_plain(*ins, sim_cfg)
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    bad, k1_err = state_diff(k1_state, twin)
+    check(not bad, f"K1 at full size: {bad} differ from the twin")
+    # run_batch's results against the twin, warp by warp
+    n = twin.trace_n.long()
+    width = int(n.max())
+    keep = torch.arange(width, device=dev) < n.unsqueeze(1)
+    twin_pcs = twin.trace_pc[:, :width][keep].cpu().numpy()
+    twin_masks = twin.trace_mask[:, :width][keep].cpu().numpy() \
+        .view(np.uint32)
+    host = {k: getattr(twin, k).cpu().numpy() for k in
+            ("regs", "preds", "mem", "finished", "steps", "fuel", "error")}
+    got_pcs = np.fromiter((pc for r in results for pc, _ in r.trace),
+                          np.int64, int(n.sum()))
+    got_masks = np.fromiter((m for r in results for _, m in r.trace),
+                            np.int64, int(n.sum()))
+    check(np.array_equal(got_pcs, twin_pcs)
+          and np.array_equal(got_masks, twin_masks)
+          and [len(r.trace) for r in results] == n.tolist(),
+          "run_batch traces differ from the twin's")
+    for f, k in (("regs", "regs"), ("preds", "preds"), ("mem", "mem")):
+        check(np.array_equal(np.stack([getattr(r, f) for r in results]),
+                             host[k]), f"run_batch {f} differ from the twin")
+    check([(r.finished, r.steps, r.fuel_left, r.error is None)
+           for r in results]
+          == [(int(a), int(b), int(c), int(d) == 0) for a, b, c, d in zip(
+              host["finished"], host["steps"], host["fuel"],
+              host["error"])], "run_batch counters differ from the twin")
+    # one warp of each program against the numpy run_hanoi, timed
+    t0 = time.perf_counter()
+    refs = [interp.run_hanoi(r.program, sim_cfg, init_mem=r.init_mem)
+            for r in reqs[:len(suite)]]
+    numpy_s = time.perf_counter() - t0
+    for r, ref in zip(results, refs):
+        check(r.trace == tuple(ref.trace)
+              and np.array_equal(r.regs, ref.regs)
+              and np.array_equal(r.preds, ref.preds)
+              and np.array_equal(r.mem, ref.mem)
+              and (r.finished, r.steps, r.fuel_left)
+              == (ref.finished, ref.steps, ref.fuel_left),
+              f"{r.mechanism} {reqs[results.index(r)].name} differs from "
+              "the numpy run_hanoi")
+    slots = (sim_cfg.max_steps - twin.fuel).long()
+    numpy_slots = sum(sim_cfg.max_steps - ref.fuel_left for ref in refs)
+    k1_ms = cuda_time_ms(lambda: ops.hanoi_run(*ins, sim_cfg), 5, warmup=1)
+    # the trace buffers' -1 / 0 fill alone, as PyTorch's fill kernels do it
+    fill_ms = cuda_time_ms(lambda: (k1_state.trace_pc.fill_(-1),
+                                    k1_state.trace_mask.fill_(0)), 5)
+    k1_bytes = hs.run_bytes(k1_state, L)
+    t_bytes = k1_bytes / PEAK_BYTES_PER_S * 1e3
+    t_slots = int(slots.max()) * SLOT_CYCLES / CLOCK_HZ * 1e3
+    k1_bound = (max(t_bytes, t_slots),
+                "bytes" if t_bytes >= t_slots else "operations")
+    sim_numbers = {
+        "warps": SIM_WARPS, "cfg": dict(sim_cfg._asdict()), "L": L,
+        "slots": int(slots.sum()), "longest_warp_slots": int(slots.max()),
+        "run_batch_wall_s": sim_wall,
+        "run_batch_exec_s": sum(r.wall_time_s for r in results),
+        "warps_per_s": SIM_WARPS / sim_wall,
+        "slots_per_s": int(slots.sum()) / sim_wall,
+        "k1_ms": k1_ms, "twin_s": twin_s, "trace_fill_ms": fill_ms,
+        "numpy_run_hanoi_s": numpy_s,
+        "numpy_host_slots_per_s": numpy_slots / numpy_s,
+        "k1_bytes": k1_bytes, "bound_ms_bytes": t_bytes,
+        "bound_ms_slots": t_slots,
+        "smem_per_cta": hs.smem_bytes(sim_cfg, L)}
+    phase("simulator", mechanism="hanoi_torch", launches=got,
+          statuses=dict(collections.Counter(r.status.value for r in results)),
+          **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+             for k, v in sim_numbers.items()})
+    del warm, results, k1_state, twin, ins, host, got_pcs, got_masks
+    torch.cuda.empty_cache()
+
+    # 5c. Fig 9 through compare, on the card ------------------------------------
+    groups = len(plan_dispatch(get_mechanism("hanoi_torch"), [
+        as_request(b, sim_cfg) for b in suite]))
+    same, _, got = run_path(
+        "fig9 hanoi_torch vs hanoi",
+        lambda: sim.compare(["hanoi_torch", "hanoi"], timing=False),
+        {"hanoi_run": groups})
+    check(len(same.rows) == 2 * len(suite)
+          and all(r.discrepancy == 0.0 for r in same.rows),
+          "hanoi_torch and hanoi traces differ")
+    oracle, _, got = run_path(
+        "fig9 hanoi_torch vs turing_oracle",
+        lambda: sim.compare("hanoi_torch", baseline="turing_oracle",
+                            timing=False), {"hanoi_run": groups})
+    ref = sim.compare("hanoi", baseline="turing_oracle", timing=False)
+    rows = oracle.pair("hanoi_torch", "turing_oracle")
+    ref_rows = ref.pair("hanoi", "turing_oracle")
+    check([(r.program, r.discrepancy) for r in rows]
+          == [(r.program, r.discrepancy) for r in ref_rows],
+          "hanoi_torch's Fig 9 rows differ from the numpy hanoi's")
+    fig9_mean = oracle.mean_discrepancy("hanoi_torch", "turing_oracle")
+    phase("fig9", pair="hanoi_torch/turing_oracle", launches=got,
+          mean_discrepancy_pct=f"{100 * fig9_mean:.4f}", paper_pct=1.03,
+          rows={r.program: f"{100 * r.discrepancy:.4f}" for r in rows},
+          hanoi_torch_vs_hanoi_max=max(r.discrepancy for r in same.rows))
+
     # 6. kernel times at the main paths' shapes ------------------------------
     def attention_times(B, S, H, K, hd, window):
         q, k, v = qkv(B, S, H, K, hd, torch.bfloat16)
@@ -617,6 +836,19 @@ def main() -> int:
          "sweep_ms": rwkv_sweep, "scratch_bytes": rwkv_scratch,
          "ptxas": ptxas["rwkv6_scan"],
          **{case: bits[case] for case in bits if case.startswith("rwkv")}},
+        {"name": "hanoi_step", "route": "cuda",
+         "source": "src/repro_torch/csrc/hanoi_step.cu",
+         "replaces": "src/repro/core/hanoi.py:470",
+         "launches": sum(launches["hanoi_run"].values()),
+         "launches_by_path": launches["hanoi_run"],
+         "max_abs_err": k1_err,
+         "shape": f"{SIM_WARPS} warps x 32 threads, max_steps 60000",
+         "ms": k1_ms, "plain_ms": twin_s * 1e3,
+         "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+         "library_ms": None,
+         "library_note": "no PyTorch call interprets a program",
+         "ptxas": ptxas["hanoi_step"], "checks": k1_checks,
+         "simulator": sim_numbers, "fig9_mean_discrepancy": fig9_mean},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

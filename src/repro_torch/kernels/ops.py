@@ -7,7 +7,9 @@ can show that its main path went through the kernel.
 """
 from __future__ import annotations
 
+from ..core import hanoi as _hanoi
 from . import flash_attention as _fa
+from . import hanoi_step as _hs
 from . import rglru_scan as _rg
 from . import rwkv6_scan as _rw
 
@@ -52,6 +54,23 @@ def rwkv6_scan(r, k, v, w, u, *, seg: int = _rw.DEFAULT_SEG):
     return out
 
 
+def hanoi_run(programs, skips, regs, mems, lanes, cfg, *,
+              majority_first: bool = True, active0: int | None = None):
+    """Run a batch of simulated warps to their ends under Hanoi: programs
+    [N, L, 8] int32, skips [N, L] bool, regs [N, W, NR], mems [N, M] and
+    lanes [N, W] int32.  Returns the final ``HanoiState``
+    (:mod:`repro_torch.core.hanoi`)."""
+    if programs.device.type == "cpu":
+        return _hanoi.hanoi_run_plain(programs, skips, regs, mems, lanes, cfg,
+                                      majority_first=majority_first,
+                                      active0=active0)
+    st = _hs.hanoi_run_cuda(programs, skips, regs, mems, lanes, cfg,
+                            majority_first=majority_first, active0=active0)
+    hanoi_run.launches += 1
+    return st
+
+
 flash_attention.launches = 0
+hanoi_run.launches = 0
 rglru_scan.launches = 0
 rwkv6_scan.launches = 0
