@@ -6,8 +6,9 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port from the checkout's sources (the
-Hanoi step machine K1, flash attention K3, the RG-LRU scan K4, the RWKV-6
-scan K5) and reports each kernel's ptxas registers and spills; shows that K3's bf16 kernel runs on the
+Hanoi step machine K1, the SM issue scheduler K2, flash attention K3, the
+RG-LRU scan K4, the RWKV-6 scan K5) and reports each kernel's ptxas
+registers and spills; shows that K3's bf16 kernel runs on the
 tensor cores (its HMMA instructions, and no register spills); holds each
 kernel against its plain PyTorch version on the card (K3 at hd 64, 128, 256
 and 320, in bf16 and f32; K4 and K5, split over time, against twins that
@@ -16,8 +17,12 @@ length of many resident waves, and the same bits from two launches; K1
 against its plain twin bit for bit in every field of the simulator's
 state, at 4, 8 and 32 threads, 2 and 8 Bx registers, majority-first on and
 off, with oracle skips, over the paper's figures, the spinlock and the
-suite); and drives the port's main paths at full width, with random
-weights or data drawn from a seed:
+suite, and at the shapes that take its other layouts: 16,384 words of
+memory, a 2,048-row program, 512 registers, 40 predicates, and the memory
+image, the program and the registers in global memory; K2 against its twin
+bit for bit in every output, cells of 1, 8, 32 and 64 warps, every issue
+policy, two latency tables, two launches alike); and drives the port's
+main paths at full width, with random weights or data drawn from a seed:
 
 - llama3.2-1b: a bf16 prefill of 4 x 2048 tokens through K3 (hd 64);
 - recurrentgemma-2b: a bf16 prefill of 4 x 2048 through K3 (hd 256), held
@@ -34,7 +39,13 @@ weights or data drawn from a seed:
   to the twin and one warp of each program to the numpy ``run_hanoi``;
   then Fig 9 through ``compare``: ``hanoi_torch`` against ``hanoi``
   (discrepancy 0) and against ``turing_oracle`` (the numpy ``hanoi``'s
-  discrepancies, row for row).
+  discrepancies, row for row);
+- the SM model: ``run_batch(mechanism="sm_torch")`` over 1,056 SM cells of
+  8 warps under greedy-then-oldest, and a ``run_cells`` grid of 264
+  heterogeneous cells of 32 warps under round robin, each in one launch of
+  K1 and one of K2, every SmResult held to the twins' and the longest cell
+  of each policy to ``sm_interleave``; then Fig 10 through
+  ``compare(timing="cycle")``, row for row the numpy ``hanoi``'s.
 
 Every kernel's launch count is set to 0 just before each path and read just
 after it; a path that launches a kernel another number of times than it
@@ -87,6 +98,12 @@ SIM_WARPS = 132 * 64
 # one dependent shared-memory round trip a scheduler slot, at the data
 # sheet's 1.98 GHz boost clock: the latency half of K1's bound
 SLOT_CYCLES, CLOCK_HZ = 30, 1.98e9
+# the SM model's grids: (a) 1,056 cells of 8 warps (8,448 warps, one full
+# residency of the card, as the simulator phase), greedy-then-oldest, the
+# paper's Table III scheduler; (b) 264 cells of 32 warps, each warp its
+# own program and memory, round robin
+SM_CELLS_A, SM_WARPS_A = 1056, 8
+SM_CELLS_B, SM_WARPS_B = 264, 32
 
 
 def phase(name: str, **fields) -> None:
@@ -141,7 +158,7 @@ def ptxas_report(log: str) -> dict:
                                              or n + "E" in entry)), None)
         if name and name + "I" in entry:        # a template's instance
             name = "{}<{}>".format(name, ",".join(
-                re.findall(r"Li(\d+)E", entry)))
+                re.findall(r"L[ib](\d+)E", entry)))
         short[entry] = name
     if all(short.values()) and len(set(short.values())) == len(short):
         return {short[e]: v for e, v in report.items()}
@@ -171,19 +188,22 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.core import hanoi as hanoi_core
     from repro_torch.core import interp, programs
-    from repro_torch.core.isa import MachineConfig
+    from repro_torch.core.isa import MachineConfig, Op
     from repro_torch.engine import SimRequest, Simulator, as_request
     from repro_torch.engine import get_mechanism
     from repro_torch.service.planner import plan_dispatch
     from repro_torch.engine.adapters import _batch_arrays, padded_len
+    from repro_torch.engine.mechanisms import sm_torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import hanoi_step as hs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import rwkv6_scan as rw
+    from repro_torch.kernels import sm_sched
     from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import prefill, prefill_config
+    from repro_torch.timing import CycleConfig
     from repro_torch.models import Transformer, init_params, model_struct
     from repro_torch.models import recurrent
     from repro_torch.models.base import Params, tree_map
@@ -194,7 +214,7 @@ def main() -> int:
     dev = torch.device("cuda")
     counters = {"flash_attention": ops.flash_attention,
                 "rglru_scan": ops.rglru_scan, "rwkv6_scan": ops.rwkv6_scan,
-                "hanoi_run": ops.hanoi_run}
+                "hanoi_run": ops.hanoi_run, "sm_schedule": ops.sm_schedule}
     launches = {name: {} for name in counters}     # kernel -> path -> count
 
     def run_path(path: str, fn, expect: dict):
@@ -233,7 +253,7 @@ def main() -> int:
     phase("build", kernels=",".join(logs),
           seconds=f"{time.perf_counter() - t0:.1f}")
     ptxas = {name: ptxas_report(log) for name, log in logs.items()}
-    for name in ("rglru_scan", "rwkv6_scan", "hanoi_step"):
+    for name in ("rglru_scan", "rwkv6_scan", "hanoi_step", "sm_sched"):
         phase("ptxas", kernel=name, report=json.dumps(ptxas[name]))
         check(bool(ptxas[name]) and all("registers" in v and "spill_stores"
                                         in v for v in ptxas[name].values()),
@@ -444,6 +464,128 @@ def main() -> int:
             check(not repeat_bad, f"K1 {case}: a second launch differs "
                   f"in {repeat_bad}")
             del ins, got, again, want
+    torch.cuda.empty_cache()
+
+    # K1 at the shapes that take its other layouts (hanoi_step.layout):
+    # 16,384 words (2 warps a CTA), a 2,048-row program, 512 registers, 40
+    # predicates, and the memory image, then also the program and the
+    # registers, in global memory.  The figures and 12 suite programs, and
+    # programs that write the highest registers and predicates and walk
+    # every row of the program.
+    from repro_torch.core.asm import assemble
+
+    def wide_programs(cfg, L):
+        r = min(cfg.n_regs, 512) - 1
+        progs = [assemble(f"LANEID R1\nIADDI R{r}, R1, 5\n"
+                          f"IADDI R{r - 1}, R{r}, 7\n"
+                          f"STG [R1+3], R{r - 1}\nEXIT")]
+        if cfg.n_preds > 32:
+            progs.append(assemble(
+                "LANEID R1\nISETP.GE P35, R1, 9\nISETP.LT P39, R1, 20\n"
+                "@P35 IADDI R2, R1, 7\n@!P39 IADDI R3, R1, 9\n"
+                "BSSY B0, join\n@P35 BRA right\nIADDI R4, R1, 1\n"
+                "BRA join\nright:\nIADDI R4, R1, 2\njoin:\nBSYNC B0\n"
+                "ISETP.EQ P33, R4, 11\n@P33 MOV R5, 11\nEXIT"))
+        if L > 32:
+            line = np.zeros((L, 8), np.int32)
+            line[:, :3], line[:, 5] = (int(Op.IADDI), 2, 2), 1
+            line[-1] = 0
+            line[-1, 0] = int(Op.EXIT)
+            progs.append(line)
+        return progs
+
+    base = MachineConfig(n_threads=32, mem_size=256, max_steps=512)
+    k1_layouts = {}
+    for case, cfg, L in (
+            ("mem_size_16384", base._replace(mem_size=16_384), 32),
+            ("program_2048_rows", base, 2048),
+            ("n_regs_512", base._replace(n_regs=512), 32),
+            ("n_preds_40", base._replace(n_preds=40), 32),
+            ("global_memory", base._replace(mem_size=65_536), 32),
+            ("global_program_and_registers",
+             base._replace(mem_size=65_536, n_regs=2048), 8192)):
+        reqs = [SimRequest(program=p, cfg=cfg) for p in (
+            programs.fig5_program(), programs.fig6_program(),
+            *wide_programs(cfg, L))]
+        reqs += [SimRequest(program=b.program, cfg=cfg, init_mem=b.init_mem)
+                 for b in programs.make_suite(cfg)[:12]]
+        arrays = _batch_arrays(reqs, cfg, L)
+        ins = [torch.from_numpy(a).to(dev) for a in arrays]
+        lay = hs.layout(cfg, L)
+        got = ops.hanoi_run(*ins, cfg)
+        want = hanoi_core.hanoi_run_plain(*ins, cfg)
+        torch.cuda.synchronize()
+        bad, err = state_diff(got, want)
+        k1_layouts[case] = {"layout": lay._asdict(), "bit_equal": not bad,
+                            "max_abs_err": err}
+        phase("kernel_check", kernel="hanoi_step", case=case, warps=len(reqs),
+              rows=L, layout=json.dumps(lay._asdict()),
+              longest_warp_slots=int((cfg.max_steps - want.fuel).max()),
+              differing_fields=bad, bit_equal=not bad)
+        check(not bad, f"K1 {case}: {bad} differ from the twin")
+        del ins, got, want
+    torch.cuda.empty_cache()
+
+    # K2 against its twin on K1's traces, bit for bit in every output (the
+    # fill past each cell's total included), and a second launch alike:
+    # cells of 1, 8, 32 (one hardware warp a cell) and 64 warps (a CTA a
+    # cell), drawn from 46 rows (the suite on two memories each, 512 slots
+    # of fuel: the twin's host loop takes a slot of the longest cell at a
+    # time), every policy with the default latencies and
+    # greedy-then-oldest with ALU 4 and memory 100.
+    k2_cfg = MachineConfig(n_threads=32, mem_size=256, max_steps=512)
+    k2_suite = programs.make_suite(k2_cfg)
+    k2_reqs = [SimRequest(program=b.program, cfg=k2_cfg,
+                          init_mem=None if b.init_mem is None
+                          else programs._mem(k2_cfg, SEED + 7 * i + k))
+               for k in range(2) for i, b in enumerate(k2_suite)]
+    _, k2_ins = hanoi_operands(k2_reqs, k2_cfg)
+    k2_state = ops.hanoi_run(*k2_ins, k2_cfg)
+    k2_code = k2_ins[0][:, :, 0].contiguous()
+    rng = np.random.default_rng(SEED)
+    k2_checks = {}
+    latencies = {"default": sm_torch._latency_tables(
+        CycleConfig(scoreboard=False)),
+        "alu4_mem100": sm_torch._latency_tables(CycleConfig(
+            scoreboard=False, alu_latency=4, memory_latency=100))}
+    for n_warps in (1, 8, 32, 64):
+        warp_map = torch.from_numpy(rng.integers(
+            0, len(k2_reqs), (24, n_warps)).astype(np.int32)).to(dev)
+        trace_n = k2_state.trace_n[warp_map.long()]
+        out_cap = sm_torch._out_capacity(int(trace_n.sum(1).max()))
+        for policy, lat_name in [(p, "default") for p in
+                                 ("greedy_then_oldest", "round_robin",
+                                  "oldest_first")] + [
+                ("greedy_then_oldest", "alu4_mem100")]:
+            args = (warp_map, trace_n, k2_code, k2_state.trace_pc,
+                    k2_state.trace_mask, *latencies[lat_name])
+            got = ops.sm_schedule(*args, out_cap=out_cap, policy=policy)
+            again = ops.sm_schedule(*args, out_cap=out_cap, policy=policy)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = sm_sched.sm_schedule_plain(*args, out_cap=out_cap,
+                                              policy=policy)
+            torch.cuda.synchronize()
+            twin_s = time.perf_counter() - t0
+            bad = [k for k in want._fields
+                   if not torch.equal(getattr(got, k), getattr(want, k))]
+            repeat_bad = [k for k in want._fields if not torch.equal(
+                getattr(got, k), getattr(again, k))]
+            err = max(max_err(getattr(got, k), getattr(want, k))
+                      for k in want._fields)
+            case = f"w{n_warps}_{policy}_{lat_name}"
+            k2_checks[case] = {"bit_equal": not bad,
+                               "repeat_bit_equal": not repeat_bad,
+                               "max_abs_err": err}
+            phase("kernel_check", kernel="sm_sched", case=case, cells=24,
+                  out_cap=out_cap, longest_cell_slots=int(got.issued.max()),
+                  twin_s=f"{twin_s:.2f}", differing_outputs=bad,
+                  **k2_checks[case])
+            check(not bad, f"K2 {case}: {bad} differ from the twin")
+            check(not repeat_bad, f"K2 {case}: a second launch differs in "
+                  f"{repeat_bad}")
+            del got, again, want
+    del k2_ins, k2_state, k2_code
     torch.cuda.empty_cache()
 
     # 4. full-width bf16 prefills: the main paths through K3 ----------------
@@ -674,7 +816,7 @@ def main() -> int:
         "numpy_host_slots_per_s": numpy_slots / numpy_s,
         "k1_bytes": k1_bytes, "bound_ms_bytes": t_bytes,
         "bound_ms_slots": t_slots,
-        "smem_per_cta": hs.smem_bytes(sim_cfg, L)}
+        "layout": hs.layout(sim_cfg, L)._asdict()}
     phase("simulator", mechanism="hanoi_torch", launches=got,
           statuses=dict(collections.Counter(r.status.value for r in results)),
           **{k: (f"{v:.4f}" if isinstance(v, float) else v)
@@ -707,6 +849,178 @@ def main() -> int:
           mean_discrepancy_pct=f"{100 * fig9_mean:.4f}", paper_pct=1.03,
           rows={r.program: f"{100 * r.discrepancy:.4f}" for r in rows},
           hanoi_torch_vs_hanoi_max=max(r.discrepancy for r in same.rows))
+
+    # 5d. the SM model at full size: sm_torch, one K1 and one K2 launch a
+    # grid --------------------------------------------------------------------
+    def suite_req(i, **kw):
+        """Suite program i mod 23 on memory drawn from SEED + i, as the
+        simulator phase draws it."""
+        b = suite[i % len(suite)]
+        return SimRequest(program=b.program, cfg=sim_cfg, name=b.name,
+                          init_mem=None if b.init_mem is None
+                          else programs._mem(sim_cfg, SEED + i), **kw)
+
+    def sm_twins(cells, policy):
+        """The grid's SmResults from K1's and K2's plain twins on the card,
+        with the twins' seconds and K2's operands."""
+        grid = sm_torch.grid_of(cells, policy=policy,
+                                inner_label="hanoi_torch")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = hanoi_core.hanoi_run_plain(*grid.warp_operands, grid.cfg,
+                                           majority_first=grid.majority_first)
+        torch.cuda.synchronize()
+        k1_s = time.perf_counter() - t0
+        warp_map, trace_n, out_cap = sm_torch.schedule_operands(grid, state)
+        lat, is_mem = sm_torch._latency_tables(grid.ccfg)
+        t0 = time.perf_counter()
+        sched = sm_sched.sm_schedule_plain(
+            warp_map, trace_n, grid.ops, state.trace_pc, state.trace_mask,
+            lat, is_mem, out_cap=out_cap, policy=grid.policy)
+        torch.cuda.synchronize()
+        k2_s = time.perf_counter() - t0
+        return grid, sm_torch.assemble(grid, state, sched), (k1_s, k2_s), \
+            (warp_map, trace_n, out_cap, lat, is_mem)
+
+    def sm_diff(a, b) -> list:
+        """The fields in which two SmResults differ (every simulated
+        field, each warp's included)."""
+        bad = [f for f in ("sm_trace", "steps", "cycles",
+                           "thread_instructions", "utilization",
+                           "busy_cycles", "issue_stall_cycles",
+                           "scoreboard_stall_cycles", "memory_stall_cycles",
+                           "status", "policy") if getattr(a, f) != getattr(b, f)]
+        if len(a.warps) != len(b.warps):
+            return bad + ["warps"]
+        for wa, wb in zip(a.warps, b.warps):
+            for f in ("trace", "steps", "fuel_left", "finished", "status",
+                      "error", "utilization"):
+                if getattr(wa, f) != getattr(wb, f):
+                    bad.append(f"warp.{f}")
+            for f in ("regs", "preds", "mem"):
+                if not np.array_equal(getattr(wa, f), getattr(wb, f)):
+                    bad.append(f"warp.{f}")
+        return sorted(set(bad))
+
+    def segments() -> int:
+        """Device memory segments the caching allocator has taken so far
+        (one cudaMalloc each)."""
+        return torch.cuda.memory_stats()["segment.all.allocated"]
+
+    def sm_runs(path, fn):
+        """A grid run twice at its full shape: the first run, its execution
+        seconds and the segments it took; then the run that is held and
+        timed, through run_path (one K1 and one K2 launch), and its
+        segments.  Returns (the second run's results, its wall, its
+        launches, the two runs' numbers)."""
+        seg = segments()
+        exec_first = sum(r.wall_time_s for r in fn())
+        seg_first = segments() - seg
+        seg = segments()
+        out, wall, got = run_path(path, fn, {"hanoi_run": 1,
+                                             "sm_schedule": 1})
+        return out, wall, got, {"exec_s_first_run": exec_first,
+                                "new_segments_first_run": seg_first,
+                                "new_segments": segments() - seg}
+
+    def sm_grid_phase(label, sms, wall, got, cells, policy, runs):
+        """Hold a grid's SmResults to the twins' and its longest cell to
+        sm_interleave, time K1 and K2 on its operands, print its numbers
+        with ``runs``, sm_runs' numbers of the two runs."""
+        grid, twin_sms, (k1_twin_s, k2_twin_s), k2_ops = sm_twins(cells,
+                                                                   policy)
+        check(len(sms) == len(cells), f"{label}: lost cells")
+        for c, (a, b) in enumerate(zip(sms, twin_sms)):
+            bad = sm_diff(a, b)
+            check(not bad, f"{label} cell {c}: {bad} differ from the twins'")
+        longest = max(range(len(sms)), key=lambda c: sms[c].steps)
+        ref = sim.run_sm(list(sms[longest].requests), policy=policy,
+                         inner="hanoi_torch")
+        bad = sm_diff(sms[longest], ref)
+        check(ref.mechanism == "sm_interleave" and not bad,
+              f"{label} longest cell: {bad} differ from sm_interleave")
+        warp_map, trace_n, out_cap, lat, is_mem = k2_ops
+        k1_ms = cuda_time_ms(lambda: ops.hanoi_run(
+            *grid.warp_operands, grid.cfg), 5, warmup=1)
+        st = ops.hanoi_run(*grid.warp_operands, grid.cfg)
+
+        def k2():
+            return ops.sm_schedule(warp_map, trace_n, grid.ops, st.trace_pc,
+                                   st.trace_mask, lat, is_mem,
+                                   out_cap=out_cap, policy=grid.policy)
+        k2_ms = cuda_time_ms(k2, 5, warmup=1)
+        slots = sum(sm.steps for sm in sms)
+        exec_s = sum(sm.wall_time_s for sm in sms)
+        numbers = {
+            "cells": len(sms), "warps_per_cell": len(cells[0]),
+            "policy": grid.policy, "unique_warp_rows": len(grid.first),
+            "slots": slots, "longest_cell_slots": sms[longest].steps,
+            "out_cap": out_cap, "wall_s": wall, "exec_s": exec_s, **runs,
+            "cells_per_s": len(sms) / wall, "slots_per_s": slots / wall,
+            "k1_ms": k1_ms, "k2_ms": k2_ms, "k1_twin_s": k1_twin_s,
+            "k2_twin_s": k2_twin_s,
+            "k2_bytes": sm_sched.schedule_bytes(trace_n, out_cap)}
+        phase("sm", grid=label, launches=got,
+              statuses=dict(collections.Counter(sm.status.value
+                                                for sm in sms)),
+              held_to="twins, sm_interleave (longest cell)",
+              **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                 for k, v in numbers.items()})
+        return numbers, (k2, trace_n, out_cap, sms[longest])
+
+    sm_meta = {"sm_warps": SM_WARPS_A, "sm_policy": "greedy_then_oldest",
+               "sm_inner": "hanoi_torch"}
+    sm_reqs = [suite_req(c, meta=sm_meta) for c in range(SM_CELLS_A)]
+    res_a, wall_a, got, runs_a = sm_runs(
+        "sm run_batch", lambda: sim.run_batch(sm_reqs, mechanism="sm_torch"))
+    sms_a = [r.meta["sm"] for r in res_a]
+    check(all(r.trace == tuple((pc, m) for _, pc, m in sm.sm_trace)
+              for r, sm in zip(res_a, sms_a)),
+          "sm_torch's SimResults do not mirror their SM traces")
+    sm_a, (k2_a, trace_n_a, out_cap_a, _) = sm_grid_phase(
+        "a: run_batch 1056 x 8", sms_a, wall_a, got,
+        [list(sm.requests) for sm in sms_a], "greedy_then_oldest", runs_a)
+    del res_a, sms_a
+
+    cells_b = [[suite_req(c * SM_WARPS_B + w) for w in range(SM_WARPS_B)]
+               for c in range(SM_CELLS_B)]
+    sms_b, wall_b, got, runs_b = sm_runs(
+        "sm run_cells", lambda: sm_torch.run_cells(cells_b,
+                                                   policy="round_robin"))
+    sm_b, (_, _, _, longest_b) = sm_grid_phase(
+        "b: run_cells 264 x 32", sms_b, wall_b, got, cells_b, "round_robin",
+        runs_b)
+    # the third policy on the heterogeneous grid's longest cell
+    cell = list(longest_b.requests)
+    oldest = sim.run_sm(cell, policy="oldest_first", sm_mechanism="sm_torch")
+    ref = sim.run_sm(cell, policy="oldest_first", inner="hanoi_torch")
+    bad = sm_diff(oldest, ref)
+    check(not bad, f"oldest_first on the longest cell: {bad} differ from "
+          "sm_interleave")
+    phase("sm", grid="b: longest cell, oldest_first", slots=oldest.steps,
+          cycles=oldest.cycles, held_to="sm_interleave", bit_equal=not bad)
+    del sms_b, cells_b
+    torch.cuda.empty_cache()
+
+    # 5e. Fig 10 through compare(timing="cycle"), on the card -------------------
+    fig10, _, got = run_path(
+        "fig10 hanoi_torch vs turing_oracle",
+        lambda: sim.compare("hanoi_torch", baseline="turing_oracle",
+                            timing="cycle"), {"hanoi_run": groups})
+    ref10 = sim.compare("hanoi", baseline="turing_oracle", timing="cycle")
+    rows10 = fig10.pair("hanoi_torch", "turing_oracle")
+    fields10 = ("program", "discrepancy", "ipc_a", "ipc_b", "ipc_delta",
+                "util_a", "util_b", "status_a", "status_b", "trace_len_a",
+                "trace_len_b")
+    check([tuple(getattr(r, f) for f in fields10) for r in rows10]
+          == [tuple(getattr(r, f) for f in fields10)
+              for r in ref10.pair("hanoi", "turing_oracle")],
+          "hanoi_torch's Fig 10 rows differ from the numpy hanoi's")
+    fig10_mean = fig10.mean_abs_ipc_delta("hanoi_torch", "turing_oracle")
+    phase("fig10", pair="hanoi_torch/turing_oracle", timing="cycle",
+          launches=got, mean_abs_ipc_delta_pct=f"{100 * fig10_mean:.4f}",
+          paper_pct=0.19,
+          rows={r.program: f"{100 * r.ipc_delta:.4f}" for r in rows10})
 
     # 6. kernel times at the main paths' shapes ------------------------------
     def attention_times(B, S, H, K, hd, window):
@@ -796,6 +1110,28 @@ def main() -> int:
           roofline_share=f"{rwkv_bound[0] / rwkv_ms:.4f}")
     del ins
 
+    # K2 at shape (a), the SM model's main grid
+    k2_ms = cuda_time_ms(k2_a, 10)
+    t_bytes = sm_a["k2_bytes"] / PEAK_BYTES_PER_S * 1e3
+    # the latency half of K2's bound: the longest cell's slots, each one
+    # link of the function's shortest dependent chain (one warp-wide
+    # minimum and the issued warp's update; sm_sched.slot_chain_cycles),
+    # measured on this card, at the data sheet's boost clock
+    slot_cycles = sm_sched.slot_chain_cycles(dev)
+    t_slots = sm_a["longest_cell_slots"] * slot_cycles / CLOCK_HZ * 1e3
+    k2_bound = (max(t_bytes, t_slots),
+                "bytes" if t_bytes >= t_slots else "operations")
+    phase("kernel_time", kernel="sm_sched",
+          shape=f"{SM_CELLS_A} cells x {SM_WARPS_A} warps, out_cap "
+                f"{out_cap_a}", ms=f"{k2_ms:.4f}",
+          plain_ms=f"{1e3 * sm_a['k2_twin_s']:.4f}", library_ms=None,
+          bytes=sm_a["k2_bytes"], bound_ms=f"{k2_bound[0]:.4f}",
+          bound_by=k2_bound[1], bound_ms_bytes=f"{t_bytes:.4f}",
+          bound_ms_slots=f"{t_slots:.4f}",
+          slot_chain_cycles=f"{slot_cycles:.2f}",
+          roofline_share=f"{k2_bound[0] / k2_ms:.4f}",
+          ptxas=json.dumps(ptxas["sm_sched"]))
+
     # 7. kernels line, device line -------------------------------------------
     no_library = ("no single PyTorch call computes this recurrence "
                   "(torch has no scan)")
@@ -848,7 +1184,23 @@ def main() -> int:
          "library_ms": None,
          "library_note": "no PyTorch call interprets a program",
          "ptxas": ptxas["hanoi_step"], "checks": k1_checks,
+         "layout_checks": k1_layouts,
          "simulator": sim_numbers, "fig9_mean_discrepancy": fig9_mean},
+        {"name": "sm_sched", "route": "cuda",
+         "source": "src/repro_torch/csrc/sm_sched.cu",
+         "replaces": "src/repro/engine/mechanisms/sm_jax.py:137",
+         "launches": sum(launches["sm_schedule"].values()),
+         "launches_by_path": launches["sm_schedule"],
+         "max_abs_err": max(c["max_abs_err"] for c in k2_checks.values()),
+         "shape": f"{SM_CELLS_A} cells x {SM_WARPS_A} warps, paper config",
+         "ms": k2_ms, "plain_ms": 1e3 * sm_a["k2_twin_s"],
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+         "library_ms": None,
+         "library_note": "no PyTorch call schedules warps",
+         "slot_chain_cycles": slot_cycles,
+         "ptxas": ptxas["sm_sched"], "checks": k2_checks,
+         "sm_a": sm_a, "sm_b": sm_b,
+         "fig10_mean_abs_ipc_delta": fig10_mean},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

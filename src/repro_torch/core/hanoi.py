@@ -72,13 +72,12 @@ class HanoiState(NamedTuple):
 
 def check_cfg(cfg: MachineConfig) -> None:
     """The shapes K1 and this module take: a simulated warp fits one
-    hardware warp, and a lane's predicates fit one 32-bit word."""
+    hardware warp."""
     if not 1 <= cfg.n_threads <= 32:
         raise ValueError(f"n_threads {cfg.n_threads} must be in 1..32: one "
                          "simulated warp runs on one hardware warp")
-    if not 1 <= cfg.n_preds <= 32:
-        raise ValueError(f"n_preds {cfg.n_preds} must be in 1..32")
-    if min(cfg.n_regs, cfg.n_bx, cfg.mem_size, cfg.max_steps) < 1:
+    if min(cfg.n_regs, cfg.n_preds, cfg.n_bx, cfg.mem_size,
+           cfg.max_steps) < 1:
         raise ValueError(f"bad machine config {cfg}")
 
 

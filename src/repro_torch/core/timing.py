@@ -18,17 +18,14 @@ IPC — the paper's BFSD effect (+31.9% SIMD utilization => +83% IPC).
 
 This module is now the *legacy façade*: :func:`schedule_traces` and
 :func:`simulate` are thin shims over the event-driven cycle engine in
-:mod:`repro.timing` (trace-conservative, single-issue, fixed-latency mode —
+:mod:`repro_torch.timing` (trace-conservative, single-issue, fixed-latency mode —
 bit-identical to the historical loop, which is preserved below as
 :func:`schedule_traces_reference`, the differential oracle).  Pass a
-:class:`repro.timing.CycleConfig` instead of a :class:`TimingConfig` to get
+:class:`repro_torch.timing.CycleConfig` instead of a :class:`TimingConfig` to get
 register-level scoreboards, memory-latency distributions, and dual issue
 through the same entry points.
 
-Port of ``repro.core.timing``.  The cycle engine (``repro.timing``) is not
-ported yet (ROADMAP.md, open items, item 3): :func:`schedule_traces` and
-:func:`simulate` raise ``NotImplementedError`` until it is;
-:func:`schedule_traces_reference` and :func:`ipc_delta` work.
+Port of ``repro.core.timing`` (numpy only, copied).
 """
 from __future__ import annotations
 
@@ -38,12 +35,6 @@ import numpy as np
 
 from .isa import ATOMIC_OPS, F_OP, MEMORY_OPS, Op
 from .stepper import popcount
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} runs on the cycle engine repro.timing, which repro_torch has "
-        "not ported yet (ROADMAP.md, open items, item 3)")
 
 
 @dataclass(frozen=True)
@@ -57,7 +48,7 @@ class TimingConfig:
 @dataclass
 class TimingResult:
     """Issue-schedule outcome.  The stall fields are populated by the
-    cycle engine (:mod:`repro.timing`); every ratio is guarded so a
+    cycle engine (:mod:`repro_torch.timing`); every ratio is guarded so a
     zero-instruction schedule reports 0.0 instead of dividing by zero."""
 
     cycles: int
@@ -113,6 +104,12 @@ def _latency(op: int, cfg: TimingConfig) -> int:
     return cfg.alu_latency
 
 
+def _as_cycle_config(cfg):
+    """TimingConfig -> exact-compat CycleConfig; CycleConfig passes through."""
+    from repro_torch.timing import CycleConfig
+    return CycleConfig.from_timing(cfg)
+
+
 def schedule_traces(traces: "list[list[tuple[int, int]]]",
                     prog_ops: "list[np.ndarray]",
                     policy: str = "greedy_then_oldest",
@@ -123,18 +120,20 @@ def schedule_traces(traces: "list[list[tuple[int, int]]]",
     ``prog_ops`` holds each warp's opcode column (warps may run different
     programs — the per-SM model needs that); full ``[L, N_FIELDS]`` row
     tables are also accepted and are required when ``cfg`` is a scoreboard
-    :class:`repro.timing.CycleConfig`.  Returns ``(order, cycles,
+    :class:`repro_torch.timing.CycleConfig`.  Returns ``(order, cycles,
     thread_instructions)`` with ``order`` the issued ``(warp, pc, mask)``
     slots.  Policies: ``greedy_then_oldest`` (GTO, Table III),
-    ``round_robin``, ``oldest_first`` — see :mod:`repro.timing.policies`.
+    ``round_robin``, ``oldest_first`` — see :mod:`repro_torch.timing.policies`.
 
     With a :class:`TimingConfig` this reproduces
     :func:`schedule_traces_reference` bit-for-bit (differential-tested).
     :func:`simulate` (the Fig 10 IPC model) and
-    :func:`repro.engine.mechanisms.sm.interleave_traces` both delegate
+    :func:`repro_torch.engine.mechanisms.sm.interleave_traces` both delegate
     here, so latency semantics cannot drift apart.
     """
-    raise _not_ported("schedule_traces")
+    from repro_torch.timing import schedule_cycle
+    res = schedule_cycle(traces, prog_ops, policy, _as_cycle_config(cfg))
+    return res.order, res.cycles, res.thread_instructions
 
 
 def schedule_traces_reference(traces: "list[list[tuple[int, int]]]",
@@ -190,13 +189,15 @@ def simulate(traces: list[list[tuple[int, int]]],
              cfg: "TimingConfig | object" = TimingConfig()) -> TimingResult:
     """GTO issue simulation over per-warp control-flow traces.
 
-    Shim over :func:`repro.timing.simulate_cycle`: a legacy
+    Shim over :func:`repro_torch.timing.simulate_cycle`: a legacy
     :class:`TimingConfig` runs the exact-compat trace-conservative mode; a
-    :class:`repro.timing.CycleConfig` unlocks scoreboards / memory
+    :class:`repro_torch.timing.CycleConfig` unlocks scoreboards / memory
     distributions / dual issue.  Either way the result carries the stall
     breakdown fields.
     """
-    raise _not_ported("simulate (compare's IPC model; pass timing=False)")
+    from repro_torch.timing import simulate_cycle
+    return simulate_cycle(traces, np.asarray(program), warp_width,
+                          _as_cycle_config(cfg))
 
 
 def ipc_delta(res_a: TimingResult, res_b: TimingResult) -> float:

@@ -10,13 +10,25 @@
 // reference's init_state), steps it until it halts or spends its fuel, and
 // writes the final state, its trace and the trace's -1 / 0 fill past
 // trace_n.  One simulated warp maps to one hardware warp:
-//   - lane t holds its registers (a column of the warp's shared register
-//     file) and its predicates (bits of one 32-bit word); execution masks
-//     come from __ballot_sync, lanes >= n_threads are never set in them;
+//   - lane t holds its registers (a column of the warp's register file,
+//     [n_regs][32]) and its predicates: the bits of one 32-bit word in a
+//     register up to 32 predicates, else ceil(n_preds / 32) words in the
+//     warp's shared memory ([words][32]); execution masks come from
+//     __ballot_sync, lanes >= n_threads are never set in them;
 //   - the WS and REC stacks (depth n_threads + 2), the Bx file, the
 //     program's padded rows, the oracle skip flags and the mem_size image
 //     live in the warp's slice of shared memory; waiting, finished, the
 //     stack tops, fuel and the counters are warp-uniform registers.
+//
+// The layout follows the shape (choose_layout picks it before the launch;
+// hanoi_step.layout asks the same function): 4 simulated warps a CTA, or 2,
+// or 1, the most whose slices fit the 232,448 bytes a CTA may use.  Past one
+// warp's limit the memory image, then the program rows with the skip flags,
+// then the register file leave shared memory, one after the other: the
+// memory image is worked on in place in the mem output, the program is read
+// through the read-only path, and the registers live in a global scratch
+// buffer with the shared layout.  The default shape (the paper's config)
+// runs 4 warps a CTA with everything in shared memory.
 //
 // What bounds it on an H100: each scheduler slot is a chain of dependent
 // shared-memory reads (stack top, program row, registers) of ~30 cycles
@@ -46,7 +58,7 @@
 #include <stdint.h>
 
 // The launch's arguments (hanoi_step._Params mirrors it field for field).
-struct HanoiParams {
+struct HanoiArgs {
   const int* prog;                 // [N, L, 8]
   const unsigned char* skip;       // [N, L] (bool)
   const int* regs_in;              // [N, W, NR]
@@ -59,14 +71,25 @@ struct HanoiParams {
   int* regs; unsigned char* preds; int* mem; int* lane_ids;
   int* trace_pc; int* trace_mask;                       // [N, T]
   int* trace_n; int* steps; int* fuel; unsigned char* halted; int* error;
+  int* regs_work;                  // [N, NR, 32] when the registers are global
   int N, L, W, NR, NP, NB, M, T;
   unsigned full, active0;
   int majority_first;
 };
 
+// The layout of a launch: simulated warps a CTA, the parts that live in
+// global memory, and the CTA's shared memory in bytes (choose_layout).
+struct Choice {
+  int warps, global_mem, global_prog, global_regs, smem;
+};
+
+// What the kernel takes: the caller's arguments and the layout chosen for
+// them.
+struct HanoiParams : HanoiArgs, Choice {};
+
 namespace {
 
-constexpr int WARPS = 4;            // simulated warps per CTA (WARPS_PER_CTA)
+constexpr int SMEM_LIMIT = 232448;  // shared memory a CTA may use (H100)
 constexpr unsigned ALL = 0xffffffffu;
 constexpr int ERR_NO_FREE_BX = 1;
 
@@ -79,27 +102,58 @@ enum Op : int {
 
 __host__ __device__ inline int align16(int b) { return (b + 15) & ~15; }
 
-// One warp's slice of shared memory; hanoi_step.smem_bytes mirrors it.
+// One warp's slice of shared memory.  A
+// part that lives in global memory (g_*) takes no room; NPW is the words of
+// predicates a lane keeps here (0 when they fit a register).
 struct Layout {
   int prog, mem, regs, ws_pc, ws_mask, rec_pc, rec_bx, bx_val, bx_valid,
-      skip, total;
+      skip, preds, total;
 };
 
-__host__ __device__ inline Layout layout(int L, int NR, int NB, int M, int SD) {
+__host__ __device__ inline Layout layout(int L, int NR, int NB, int M, int SD,
+                                         int NPW, bool g_mem, bool g_prog,
+                                         bool g_regs) {
   Layout o;
   int off = 0;
-  o.prog = off;     off += align16(L * 8 * 4);
-  o.mem = off;      off += align16(M * 4);
-  o.regs = off;     off += align16(NR * 32 * 4);
+  o.prog = off;     off += g_prog ? 0 : align16(L * 8 * 4);
+  o.mem = off;      off += g_mem ? 0 : align16(M * 4);
+  o.regs = off;     off += g_regs ? 0 : align16(NR * 32 * 4);
   o.ws_pc = off;    off += align16(SD * 4);
   o.ws_mask = off;  off += align16(SD * 4);
   o.rec_pc = off;   off += align16(SD * 4);
   o.rec_bx = off;   off += align16(SD * 4);
   o.bx_val = off;   off += align16(NB * 4);
   o.bx_valid = off; off += align16(NB);
-  o.skip = off;     off += align16(L);
+  o.skip = off;     off += g_prog ? 0 : align16(L);
+  o.preds = off;    off += align16(NPW * 32 * 4);
   o.total = off;
   return o;
+}
+
+// The layout of a shape, before the launch: everything in shared memory
+// with 4 simulated warps a CTA, else 2, else 1, the most whose slices fit
+// SMEM_LIMIT; past one warp's limit, one warp a CTA with the memory image in
+// global memory; past that, the program rows too; past that, the register
+// file too.  warps 0 when even the stacks, the Bx file and the predicates do
+// not fit.  A part is sized (in int) only where it stays in shared memory,
+// and only once it alone fits there.
+inline Choice choose_layout(int L, int W, int NR, int NP, int NB, int M) {
+  const int SD = W + 2, NPW = NP > 32 ? (NP + 31) / 32 : 0;
+  const bool mem_fits = (long long)M * 4 <= SMEM_LIMIT,
+             prog_fits = (long long)L * 33 <= SMEM_LIMIT,
+             regs_fits = (long long)NR * 128 <= SMEM_LIMIT;
+  if ((long long)NB * 5 + (long long)NPW * 128 > SMEM_LIMIT) return {};
+  constexpr int ladder[6][4] = {{4, 0, 0, 0}, {2, 0, 0, 0}, {1, 0, 0, 0},
+                                {1, 1, 0, 0}, {1, 1, 1, 0}, {1, 1, 1, 1}};
+  for (const auto& c : ladder) {
+    if ((!c[1] && !mem_fits) || (!c[2] && !prog_fits) ||
+        (!c[3] && !regs_fits))
+      continue;
+    const long long b = (long long)c[0] *
+        layout(L, NR, NB, M, SD, NPW, c[1], c[2], c[3]).total;
+    if (b <= SMEM_LIMIT) return {c[0], c[1], c[2], c[3], int(b)};
+  }
+  return {};
 }
 
 // JAX gather index: normalize a negative index once, then clamp
@@ -149,6 +203,10 @@ __device__ __forceinline__ bool compare(int a, int b, int code) {
   }
 }
 
+// WARPS simulated warps a CTA; GEN: the layout may put the memory image, the
+// program and the registers in global memory (p.global_*; only at WARPS 1);
+// BIGP: more than 32 predicates, kept in shared memory.
+template <int WARPS, bool GEN, bool BIGP>
 __global__ void __launch_bounds__(WARPS * 32) hanoi_kernel(HanoiParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
@@ -157,22 +215,32 @@ __global__ void __launch_bounds__(WARPS * 32) hanoi_kernel(HanoiParams p) {
   const int W = p.W, NR = p.NR, NP = p.NP, NB = p.NB, M = p.M, L = p.L;
   const int SD = W + 2, T = p.T;
   const unsigned FULL = p.full;
-  const Layout lay = layout(L, NR, NB, M, SD);
+  const bool g_mem = GEN && p.global_mem, g_prog = GEN && p.global_prog,
+             g_regs = GEN && p.global_regs;
+  const int NPW = BIGP ? (NP + 31) / 32 : 0;
+  const Layout lay = layout(L, NR, NB, M, SD, NPW, g_mem, g_prog, g_regs);
   unsigned char* base = smem + (threadIdx.x >> 5) * lay.total;
-  int* prog = reinterpret_cast<int*>(base + lay.prog);
-  int* mem = reinterpret_cast<int*>(base + lay.mem);
-  int* regs = reinterpret_cast<int*>(base + lay.regs);     // [NR][32]
+  const int* prog = g_prog ? p.prog + w * L * 8
+                           : reinterpret_cast<const int*>(base + lay.prog);
+  int* mem = g_mem ? p.mem + w * M : reinterpret_cast<int*>(base + lay.mem);
+  int* regs = g_regs ? p.regs_work + w * NR * 32          // [NR][32]
+                     : reinterpret_cast<int*>(base + lay.regs);
+  unsigned* pwords = reinterpret_cast<unsigned*>(base + lay.preds);
   int* ws_pc = reinterpret_cast<int*>(base + lay.ws_pc);
   unsigned* ws_mask = reinterpret_cast<unsigned*>(base + lay.ws_mask);
   int* rec_pc = reinterpret_cast<int*>(base + lay.rec_pc);
   int* rec_bx = reinterpret_cast<int*>(base + lay.rec_bx);
   unsigned* bx_val = reinterpret_cast<unsigned*>(base + lay.bx_val);
   unsigned char* bx_valid = base + lay.bx_valid;
-  unsigned char* skip = base + lay.skip;
+  const unsigned char* skip = g_prog ? p.skip + w * L : base + lay.skip;
 
   // ---- initial state (the reference's init_state) -------------------------
-  for (int i = lane; i < L * 8; i += 32) prog[i] = p.prog[w * L * 8 + i];
-  for (int i = lane; i < L; i += 32) skip[i] = p.skip[w * L + i];
+  if (!g_prog) {
+    int* sprog = reinterpret_cast<int*>(base + lay.prog);
+    unsigned char* sskip = base + lay.skip;
+    for (int i = lane; i < L * 8; i += 32) sprog[i] = p.prog[w * L * 8 + i];
+    for (int i = lane; i < L; i += 32) sskip[i] = p.skip[w * L + i];
+  }
   for (int i = lane; i < M; i += 32) mem[i] = p.mem_in[w * M + i];
   for (int r = 0; r < NR; ++r)
     regs[r * 32 + lane] = lane < W ? p.regs_in[(w * W + lane) * NR + r] : 0;
@@ -183,7 +251,20 @@ __global__ void __launch_bounds__(WARPS * 32) hanoi_kernel(HanoiParams p) {
   for (int i = lane; i < NB; i += 32) { bx_val[i] = 0u; bx_valid[i] = 0; }
   const bool live_lane = lane < W;
   const int my_lane_id = live_lane ? p.lanes_in[w * W + lane] : 0;
-  unsigned pbits = 0;                   // this lane's predicates
+  unsigned pbits = 0;                   // this lane's predicates (!BIGP)
+  for (int k = 0; k < NPW; ++k) pwords[k * 32 + lane] = 0u;
+  // the guard of encoded predicate field pf (0 / +k / -k) for this lane
+  auto guard_of = [&](int pf) -> bool {
+    if constexpr (BIGP) {
+      if (pf == 0) return true;
+      long long idx = (pf < 0 ? -(long long)pf : (long long)pf) - 1;
+      idx = idx < 0 ? 0 : (idx > NP - 1 ? NP - 1 : idx);
+      const bool v = (pwords[(idx >> 5) * 32 + lane] >> (idx & 31)) & 1u;
+      return pf > 0 ? v : !v;
+    } else {
+      return pred_of(pbits, pf, NP);
+    }
+  };
   int ws_top = 0, rec_top = -1, trace_n = 0, steps = 0, fuel = T, error = 0;
   unsigned waiting = 0, finished = 0;
   bool halted = false;
@@ -240,11 +321,12 @@ __global__ void __launch_bounds__(WARPS * 32) hanoi_kernel(HanoiParams p) {
       __syncwarp();
       continue;
     }
-    const int4 f0 = *reinterpret_cast<const int4*>(prog + pc * 8);
-    const int4 f1 = *reinterpret_cast<const int4*>(prog + pc * 8 + 4);
+    const int4* row = reinterpret_cast<const int4*>(prog + pc * 8);
+    const int4 f0 = g_prog ? __ldg(row) : row[0];
+    const int4 f1 = g_prog ? __ldg(row + 1) : row[1];
     const int op = min(max(f0.x, 0), int(ATOMADD));
     const int dst = f0.y, s0 = f0.z, s1 = f0.w, s2 = f1.x, imm = f1.y;
-    const bool guard = live_lane && pred_of(pbits, f1.z, NP) && pred_of(pbits, f1.w, NP);
+    const bool guard = live_lane && guard_of(f1.z) && guard_of(f1.w);
     const unsigned execm = amask & __ballot_sync(ALL, guard);
     const bool ev = (execm >> lane) & 1u;
     // trace: lane (trace_n mod 32) buffers the entry; every 32 entries the
@@ -409,8 +491,14 @@ __global__ void __launch_bounds__(WARPS * 32) hanoi_kernel(HanoiParams p) {
       case ISETP: {
         const bool res = compare(R0, s1 == -1 ? imm : R1, s2);
         __syncwarp();
-        if (ev && dst >= 0 && dst < NP)
-          pbits = (pbits & ~(1u << dst)) | (unsigned(res) << dst);
+        if (ev && dst >= 0 && dst < NP) {
+          if constexpr (BIGP) {
+            unsigned& word = pwords[(dst >> 5) * 32 + lane];
+            word = (word & ~(1u << (dst & 31))) | (unsigned(res) << (dst & 31));
+          } else {
+            pbits = (pbits & ~(1u << dst)) | (unsigned(res) << dst);
+          }
+        }
         set_pc(top, pc1);
         break;
       }
@@ -487,10 +575,13 @@ __global__ void __launch_bounds__(WARPS * 32) hanoi_kernel(HanoiParams p) {
     p.bx_val[w * NB + i] = (long long)bx_val[i];
     p.bx_valid[w * NB + i] = bx_valid[i];
   }
-  for (int i = lane; i < M; i += 32) p.mem[w * M + i] = mem[i];
+  if (!g_mem)                           // else mem is the mem output itself
+    for (int i = lane; i < M; i += 32) p.mem[w * M + i] = mem[i];
   if (live_lane) {
     for (int r = 0; r < NR; ++r) p.regs[(w * W + lane) * NR + r] = regs[r * 32 + lane];
-    for (int k = 0; k < NP; ++k) p.preds[(w * W + lane) * NP + k] = (pbits >> k) & 1u;
+    for (int k = 0; k < NP; ++k)
+      p.preds[(w * W + lane) * NP + k] =
+          ((BIGP ? pwords[(k >> 5) * 32 + lane] : pbits) >> (k & 31)) & 1u;
     p.lane_ids[w * W + lane] = my_lane_id;
   }
   if (lane == 0) {
@@ -501,28 +592,60 @@ __global__ void __launch_bounds__(WARPS * 32) hanoi_kernel(HanoiParams p) {
   }
 }
 
+template <int WARPS, bool GEN, bool BIGP>
+int launch(const HanoiParams& p, cudaStream_t stream) {
+  if (p.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        hanoi_kernel<WARPS, GEN, BIGP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (e != cudaSuccess) return int(e);
+  }
+  const int grid = (p.N + WARPS - 1) / WARPS;
+  hanoi_kernel<WARPS, GEN, BIGP><<<grid, WARPS * 32, p.smem, stream>>>(p);
+  return int(cudaGetLastError());
+}
+
+template <bool BIGP>
+int launch_layout(const HanoiParams& p, cudaStream_t stream) {
+  if (p.global_mem || p.global_prog || p.global_regs)
+    return p.warps == 1 ? launch<1, true, BIGP>(p, stream)
+                        : int(cudaErrorInvalidValue);
+  switch (p.warps) {
+    case 4: return launch<4, false, BIGP>(p, stream);
+    case 2: return launch<2, false, BIGP>(p, stream);
+    case 1: return launch<1, false, BIGP>(p, stream);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// Runs every warp of the batch to its end.  Outputs are written whole; the
-// caller allocates them.  Returns cudaGetLastError() after the launch (0 on
-// success); the caller raises on anything else.
-int hanoi_run(const HanoiParams* params, void* stream) {
-  const HanoiParams p = *params;
+// Runs every warp of the batch to its end, in choose_layout's layout for
+// its shape.  Outputs are written whole; the caller allocates them, and the
+// register scratch buffer where the layout puts the registers in global
+// memory.  Returns cudaGetLastError() after the launch (0 on success); the
+// caller raises on anything else.
+int hanoi_run(const HanoiArgs* args, void* stream) {
+  HanoiParams p;
+  static_cast<HanoiArgs&>(p) = *args;
   if (p.N < 1 || p.L < 1 || p.W < 1 || p.W > 32 || p.NR < 1 || p.NP < 1 ||
-      p.NP > 32 || p.NB < 1 || p.M < 1 || p.T < 1)
+      p.NB < 1 || p.M < 1 || p.T < 1)
     return int(cudaErrorInvalidValue);
-  // shared memory of a CTA (hanoi_step.smem_bytes mirrors it)
-  const int smem = WARPS * layout(p.L, p.NR, p.NB, p.M, p.W + 2).total;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        hanoi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return int(e);
-  }
-  const int grid = (p.N + WARPS - 1) / WARPS;
-  hanoi_kernel<<<grid, WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return int(cudaGetLastError());
+  static_cast<Choice&>(p) = choose_layout(p.L, p.W, p.NR, p.NP, p.NB, p.M);
+  if (p.warps == 0 || (p.global_regs && !p.regs_work))
+    return int(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return p.NP > 32 ? launch_layout<true>(p, s) : launch_layout<false>(p, s);
+}
+
+// hanoi_run's layout for a shape, into out: warps a CTA (0: none fits),
+// global_mem, global_prog, global_regs and the CTA's shared memory bytes.
+void hanoi_layout(int L, int W, int NR, int NP, int NB, int M, int* out) {
+  const Choice c = choose_layout(L, W, NR, NP, NB, M);
+  out[0] = c.warps; out[1] = c.global_mem; out[2] = c.global_prog;
+  out[3] = c.global_regs; out[4] = c.smem;
 }
 
 const char* cuda_error_string(int err) {

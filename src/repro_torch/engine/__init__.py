@@ -10,14 +10,18 @@
     sim = Simulator()
     # a whole batch in one launch of kernel K1 on the card
     results = sim.run_batch(make_suite(cfg), cfg, mechanism="hanoi_torch")
-    # the paper's Fig 9 evaluation in one call
+    # the paper's Fig 9 and Fig 10 evaluation in one call
     report = sim.compare("hanoi_torch", baseline="turing_oracle",
-                         timing=False)
+                         timing="cycle")
+    # one SM of 8 warps: K1 for the warps, K2 for the issue schedule
+    sm = sim.run_sm(make_suite(cfg)[0], cfg, n_warps=8,
+                    policy="greedy_then_oldest", sm_mechanism="sm_torch")
 
-Layout: :mod:`.types` (frozen :class:`SimRequest` / :class:`SimResult`,
-:class:`SimStatus`), :mod:`.registry` (the mechanism registry),
-:mod:`.adapters` (``hanoi``, ``turing_oracle``, ``simt_stack``,
-``dualpath`` and ``hanoi_torch``), :mod:`.simulator` (the
+Layout: :mod:`.types` (frozen :class:`SimRequest` / :class:`SimResult` /
+:class:`SmResult`, :class:`SimStatus`), :mod:`.registry` (the mechanism
+registry), :mod:`.adapters` (``hanoi``, ``turing_oracle``, ``simt_stack``,
+``dualpath`` and ``hanoi_torch``), :mod:`.mechanisms` (``volta_itps``,
+``sm_interleave`` and ``sm_torch``), :mod:`.simulator` (the
 :class:`Simulator` façade), :mod:`.compile_cache` (affinity tokens).  The
 registry is the port's own: nothing is registered into ``repro``'s.
 """
@@ -26,14 +30,16 @@ from repro_torch.core.isa import MachineConfig
 from .registry import (Mechanism, available_mechanisms, get_mechanism,
                        iter_mechanisms, register_mechanism,
                        unregister_mechanism)
-from .types import (SimRequest, SimResult, SimStatus, classify_status,
-                    worst_status)
+from .types import (SimRequest, SimResult, SimStatus, SmResult,
+                    classify_status, worst_status)
 from .simulator import CompareReport, CompareRow, Simulator, as_request
 from . import adapters as _adapters            # registers the built-ins
+from . import mechanisms as _mechanisms        # registers the plugins
 
 __all__ = [
     "CompareReport", "CompareRow", "MachineConfig", "Mechanism",
-    "SimRequest", "SimResult", "SimStatus", "Simulator", "as_request",
+    "SimRequest", "SimResult", "SimStatus", "Simulator", "SmResult",
+    "as_request",
     "available_mechanisms", "classify_status", "get_mechanism",
     "iter_mechanisms", "register_mechanism", "unregister_mechanism",
     "worst_status",

@@ -44,7 +44,8 @@ from repro_torch.core.isa import Op
 from .registry import register_mechanism
 from .types import SimRequest, SimResult, classify_status
 
-__all__ = ["PAD_QUANTUM", "padded_len", "result_from_runresult"]
+__all__ = ["PAD_QUANTUM", "padded_len", "result_from_runresult",
+           "state_results"]
 
 
 def result_from_runresult(mechanism: str, r: RunResult, req: SimRequest,
@@ -171,16 +172,19 @@ def _device_of(req: SimRequest):
     return resolve(req.meta.get("device"))
 
 
-def _build_kernel(dev) -> float | None:
-    """Build and load K1 before its first launch in this process; returns
-    the seconds that took, or None when it was loaded already."""
+def _build_kernel(dev, names: Sequence[str] = ("hanoi_step",)
+                  ) -> float | None:
+    """Build and load the named kernels (K1 by default) before their first
+    launch in this process; returns the seconds that took, or None when
+    they were loaded already."""
     if dev.type == "cpu":
         return None
     from repro_torch.kernels import _build
-    if "hanoi_step" in _build._LIBS:
+    if all(n in _build._LIBS for n in names):
         return None
     t0 = time.perf_counter()
-    _build.load("hanoi_step")
+    for n in names:
+        _build.load(n)
     return time.perf_counter() - t0
 
 
@@ -206,13 +210,10 @@ def _run_hanoi_torch_batch(reqs: Sequence[SimRequest], *,
     Wall-time accounting: ``wall_time_s`` is execution-only, amortized per
     request.  K1's first build in the process is measured separately and
     stamped as ``meta["compile_time_s"]`` on that batch's results; it never
-    inflates latency percentiles.  Result assembly copies each warp's
-    ``trace[:trace_n]`` and its small state to the host, never the whole
-    ``max_steps`` trace buffer.
+    inflates latency percentiles.
     """
     import torch
 
-    from repro_torch.core.hanoi import ERR_NO_FREE_BX
     from repro_torch.kernels import ops
 
     cfg = reqs[0].resolved_cfg()
@@ -231,7 +232,21 @@ def _run_hanoi_torch_batch(reqs: Sequence[SimRequest], *,
         torch.cuda.synchronize(dev)
     wall = (time.perf_counter() - t0) / max(1, len(reqs))
     meta = None if compile_s is None else {"compile_time_s": compile_s}
+    return state_results(reqs, st, wall, meta=meta)
 
+
+def state_results(reqs: Sequence[SimRequest], st, wall_time_s: float, *,
+                  meta: "dict | None" = None) -> list[SimResult]:
+    """One ``hanoi_torch`` :class:`SimResult` per row of the Hanoi state
+    ``st`` (request ``i`` ran as row ``i``).  Each warp's
+    ``trace[:trace_n]`` and its small state reach the host, never the whole
+    ``max_steps`` trace buffer."""
+    import torch
+
+    from repro_torch.core.hanoi import ERR_NO_FREE_BX
+
+    cfg = reqs[0].resolved_cfg()
+    dev = st.trace_n.device
     # the traces, gathered on the device to their trace_n entries a warp
     n = st.trace_n.to(torch.int64)
     width = max(1, int(n.max()))
@@ -265,7 +280,7 @@ def _run_hanoi_torch_batch(reqs: Sequence[SimRequest], *,
             regs=host["regs"][i], preds=host["preds"][i], mem=host["mem"][i],
             finished=finished, steps=scalars["steps"][i],
             fuel_left=fuel_left, trace=trace, utilization=util, error=error,
-            wall_time_s=wall, meta=meta or {}))
+            wall_time_s=wall_time_s, meta=meta or {}))
     return out
 
 

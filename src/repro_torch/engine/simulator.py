@@ -1,34 +1,36 @@
 """The Simulator façade: one entry point over every registered mechanism.
 
-Port of ``repro.engine.simulator``: ``run``, ``run_batch`` and ``compare``.
-The paths whose modules are not ported yet raise ``NotImplementedError``
-naming their ROADMAP.md item, and never fall back: static verification and
-annotation synthesis (``verify=``, ``synthesize=``: ``repro.analysis``) and
-trace sinks (``sink=``: ``engine.sinks`` needs ``analysis.fingerprint``),
-item 13; ``run_sm`` (item 3) and ``compare(timing=...)`` other than ``False``
-(the trace and cycle timing models run on ``repro.timing``, item 3).
+Port of ``repro.engine.simulator``: ``run``, ``run_batch``, ``run_sm`` and
+``compare``.  The paths whose modules are not ported yet raise
+``NotImplementedError`` naming their ROADMAP.md item, and never fall back:
+static verification and annotation synthesis (``verify=``, ``synthesize=``:
+``repro.analysis``) and trace sinks (``sink=``: ``engine.sinks`` needs
+``analysis.fingerprint``), item 13.
 
 ``Simulator.run`` executes one request, ``run_batch`` many (one launch of
 kernel K1 a batch on ``hanoi_torch``; sequential — or opt-in
-thread-pooled — on the numpy engines), and ``compare`` runs the same
-programs under several mechanisms and reports per-pair trace discrepancy —
-the paper's Fig 9 evaluation as a one-call API.
+thread-pooled — on the numpy engines), ``run_sm`` one SM of warps (through
+``sm_interleave``, or ``sm_torch``: one launch of K1 and one of K2), and
+``compare`` runs the same programs under several mechanisms and reports
+per-pair trace discrepancy and IPC deltas — the paper's Fig 9 / Fig 10
+evaluation as a one-call API.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import time
 from dataclasses import dataclass, field
 from typing import Any, Iterable, Sequence
 
 import numpy as np
 
 from repro_torch.core.isa import MachineConfig
-from repro_torch.core.timing import TimingConfig
+from repro_torch.core.timing import TimingConfig, ipc_delta, simulate
 from repro_torch.core.trace import discrepancy
 
 from .registry import get_mechanism
-from .types import SimRequest, SimResult
+from .types import SimRequest, SimResult, SmResult
 
 ProgramLike = Any    # np.ndarray | Benchmark | SimRequest
 
@@ -90,11 +92,7 @@ class CompareRow:
 
 @dataclass(frozen=True)
 class CompareReport:
-    """All pairwise rows plus the per-mechanism raw results.
-
-    ``timing_results`` keeps the reference's field; it stays empty until
-    the timing models are ported (``compare`` runs with ``timing=False``).
-    """
+    """All pairwise rows plus the per-mechanism raw results."""
 
     mechanisms: tuple[str, ...]
     rows: tuple[CompareRow, ...]
@@ -207,11 +205,79 @@ class Simulator:
 
     # -- per-SM multi-warp execution ----------------------------------------
 
-    def run_sm(self, *args, **kw):
-        """The per-SM multi-warp model (``sm_interleave`` / ``sm_jax`` in
-        the reference) is not ported yet: K2 and ``repro.timing``."""
-        raise _not_ported("run_sm (the SM model, K2 and repro.timing)",
-                          "item 3")
+    def run_sm(self, programs: "ProgramLike | Sequence[ProgramLike]",
+               cfg: MachineConfig | None = None, *,
+               n_warps: int | None = None,
+               inner: str | None = None,
+               policy: str = "round_robin",
+               timing_cfg: "TimingConfig | object" = TimingConfig(),
+               sm_mechanism: str = "sm_interleave",
+               sink=None,
+               **request_kw) -> SmResult:
+        """Run N warps on one SM through a single-warp mechanism.
+
+        ``programs`` is either one program (replicated across ``n_warps``
+        identical warps, default 4) or a sequence with one entry per warp
+        (heterogeneous SMs — different programs and/or memory images; any
+        sized sequence works, including a 3-D ndarray of stacked programs).
+        Each warp executes under ``inner`` (default: this Simulator's
+        mechanism, or ``hanoi`` if that is a composite SM mechanism), then
+        the per-warp traces are time-multiplexed through the SM issue
+        scheduler under ``policy`` (``round_robin`` /
+        ``greedy_then_oldest`` / ``oldest_first``).  The returned
+        :class:`~repro_torch.engine.types.SmResult` carries the per-warp
+        ``SimResult``s (and their ``SimRequest``s) plus the interleaved
+        ``(warp, pc, mask)`` SM trace and its latency-aware cycle count.
+
+        ``sm_mechanism`` selects the SM engine: ``"sm_interleave"``
+        (default — Python scheduler, any single-warp ``inner``) or
+        ``"sm_torch"`` (the whole cell in one launch of K1 and one of K2
+        on the card, or their plain twins for ``meta={"device": "cpu"}``;
+        bit-identical traces, ``inner`` limited to the hanoi engines).  A
+        ``sink`` is not ported yet (ROADMAP.md item 13) and raises.
+
+        The defaults are the reference's, so by default the cell runs on
+        the host (``sm_interleave`` over the Simulator's default inner,
+        the numpy ``hanoi``): an exception to the port's rule that entry
+        points take the card, kept for parity with ``repro``'s API
+        (ROADMAP.md, rules of the port).  The card is asked for by name:
+        ``sm_mechanism="sm_torch"``, or ``inner="hanoi_torch"``.
+        """
+        from .mechanisms.sm import build_sm_result, per_warp_programs
+        if sm_mechanism == "sm_jax":
+            raise ValueError("sm_mechanism 'sm_jax' is the JAX package's; "
+                             "the port's lane-parallel SM engine is "
+                             "'sm_torch'")
+        if sm_mechanism not in ("sm_interleave", "sm_torch"):
+            raise ValueError(f"sm_mechanism must be 'sm_interleave' or "
+                             f"'sm_torch', got {sm_mechanism!r}")
+        self._check_unported(sink, False, False)
+        if inner is None:
+            inner_name = self._default
+            if "composite" in get_mechanism(inner_name).tags:
+                inner_name = "hanoi"     # default fallback only:
+        else:                            # nesting is an error below
+            inner_mech = get_mechanism(inner)
+            inner_name = inner_mech.name
+            if "composite" in inner_mech.tags:
+                raise ValueError("inner must be a single-warp mechanism, "
+                                 f"not the composite {inner_name!r}")
+        per_warp = per_warp_programs(programs, n_warps)
+        if not per_warp:
+            raise ValueError("run_sm needs at least one warp")
+        reqs = [as_request(p, cfg, **request_kw) for p in per_warp]
+        if sm_mechanism == "sm_torch":
+            from .mechanisms.sm_torch import run_cells
+            return run_cells([reqs], policy=policy, timing_cfg=timing_cfg,
+                             inner_label=inner_name)[0]
+        from repro_torch.service.planner import execute_plan  # lazy: no
+        mech = get_mechanism(inner_name)                      # cycle
+        t0 = time.perf_counter()
+        results = execute_plan(mech, reqs, max_workers=self._max_workers)
+        wall = time.perf_counter() - t0
+        return build_sm_result(reqs, results, inner=inner_name,
+                               policy=policy, timing_cfg=timing_cfg,
+                               wall_time_s=wall)
 
     # -- mechanism comparison (the paper's evaluation as an API) ------------
 
@@ -227,30 +293,38 @@ class Simulator:
         """Run ``programs`` under each mechanism; diff every pair.
 
         For each program and ordered pair ``(a, b)`` the report carries the
-        paper's control-flow trace discrepancy (normalized Levenshtein,
-        ``b`` as the reference — Fig 9).  ``pairs`` defaults to all ordered
-        pairs of ``mechanisms``.
+        paper's two metrics: control-flow trace discrepancy (normalized
+        Levenshtein, ``b`` as the reference — Fig 9) and the relative IPC
+        delta from the GTO timing model (Fig 10, with ``timing_warps``
+        identical warps per scheduler; the numpy
+        :func:`~repro_torch.core.timing.simulate`, as in the reference).
+        ``pairs`` defaults to all ordered pairs of ``mechanisms``.
 
-        ``timing`` selects the IPC model (Fig 10).  Both of the reference's
-        models, ``True`` / ``"trace"`` and ``"cycle"``, run on the cycle
-        engine ``repro.timing``, which is not ported yet: they raise.
-        ``False`` skips timing: IPC fields come back NaN and utilization is
-        taken directly from the traces.
+        ``timing`` selects the IPC model:
+
+        * ``True`` / ``"trace"`` — the legacy trace-conservative uniform
+          model (every instruction depends on its predecessor);
+        * ``"cycle"`` — the event-driven cycle engine
+          (:mod:`repro_torch.timing`) with per-warp register scoreboards,
+          the Fig 10 configuration the paper's 0.19%-IPC claim is judged
+          under; per-schedule stall breakdowns land in
+          ``report.timing_results``.  ``timing_cfg`` may be a
+          :class:`~repro_torch.timing.CycleConfig` to also pick memory
+          distributions / dual issue (a plain :class:`TimingConfig` is
+          lifted onto the scoreboard model);
+        * ``False`` — skip the timing model: IPC fields come back NaN and
+          utilization is taken directly from the traces.
 
         Conveniences: ``mechanisms`` may be a single name, ``baseline``
         appends a reference mechanism and restricts ``pairs`` to
         ``(mech, baseline)``, and ``programs=None`` defaults to the paper's
         benchmark suite under the paper's evaluation config — so
-        ``compare("hanoi_torch", baseline="turing_oracle", timing=False)``
-        is a complete Fig 9 evaluation call.
+        ``compare("hanoi_torch", baseline="turing_oracle")`` is a complete
+        evaluation call.
         """
         if isinstance(timing, str) and timing not in ("trace", "cycle"):
             raise ValueError(f"timing must be True/False/'trace'/'cycle', "
                              f"got {timing!r}")
-        if timing:
-            raise _not_ported(f"compare(timing={timing!r}) (the IPC models "
-                              "run on repro.timing; pass timing=False)",
-                              "item 3")
         if isinstance(mechanisms, str):
             mechanisms = [mechanisms]
         names = [get_mechanism(m).name for m in mechanisms]
@@ -283,16 +357,42 @@ class Simulator:
         if pairs is None:
             pairs = [(a, b) for a, b in itertools.permutations(names, 2)]
         rows = []
+        timing_cache: dict[tuple[str, str], Any] = {}
+        if timing == "cycle":
+            from repro_torch.timing import CycleConfig
+            run_cfg: Any = CycleConfig.from_timing(timing_cfg,
+                                                   scoreboard=True)
+        else:
+            run_cfg = timing_cfg
+
+        def timed(pid: str, req: SimRequest, mech_name: str):
+            key = (pid, mech_name)
+            if key not in timing_cache:
+                res = results[key]
+                timing_cache[key] = simulate(
+                    [list(res.trace)] * timing_warps, req.program,
+                    req.resolved_cfg().n_threads, run_cfg)
+            return timing_cache[key]
+
         nan = float("nan")
         for pid, req in zip(pids, reqs):
             for a, b in pairs:
                 ra, rb = results[(pid, a)], results[(pid, b)]
+                if timing:
+                    ta, tb = timed(pid, req, a), timed(pid, req, b)
+                    ipc_a, ipc_b = ta.ipc, tb.ipc
+                    delta = ipc_delta(ta, tb)
+                    util_a, util_b = ta.simd_utilization, tb.simd_utilization
+                else:
+                    ipc_a = ipc_b = delta = nan
+                    util_a, util_b = ra.utilization, rb.utilization
                 rows.append(CompareRow(
                     program=pid, mech_a=a, mech_b=b,
                     discrepancy=discrepancy(list(ra.trace), list(rb.trace)),
-                    ipc_a=nan, ipc_b=nan, ipc_delta=nan,
-                    util_a=ra.utilization, util_b=rb.utilization,
+                    ipc_a=ipc_a, ipc_b=ipc_b,
+                    ipc_delta=delta,
+                    util_a=util_a, util_b=util_b,
                     status_a=ra.status.value, status_b=rb.status.value,
                     trace_len_a=len(ra.trace), trace_len_b=len(rb.trace)))
         return CompareReport(mechanisms=tuple(names), rows=tuple(rows),
-                             results=results)
+                             results=results, timing_results=timing_cache)

@@ -12,6 +12,7 @@ bit in every field.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -19,23 +20,40 @@ from ..core.hanoi import HanoiState, check_cfg
 from ..core.isa import MachineConfig
 from . import _build
 
-WARPS_PER_CTA = 4        # simulated warps per CTA, one hardware warp each
-SMEM_LIMIT = 232_448     # shared memory a CTA can use on an H100
+
+class Layout(NamedTuple):
+    """Where K1 keeps a warp's state for one shape (see :func:`layout`)."""
+
+    warps: int               # simulated warps a CTA, one hardware warp each
+    global_mem: bool         # the memory image, worked on in the mem output
+    global_prog: bool        # program rows and skips, read-only path
+    global_regs: bool        # the register file, in a global scratch buffer
+    smem_bytes: int          # shared memory of one CTA
 
 
-def _align16(n: int) -> int:
-    return (n + 15) & ~15
+def layout(cfg: MachineConfig, L: int) -> Layout:
+    """K1's layout for ``cfg`` and an ``L``-row program, chosen from the
+    shape alone before the launch by the kernel's own host code
+    (``choose_layout`` in ``csrc/hanoi_step.cu``, which ``hanoi_run``
+    applies); this asks it, so it needs the built kernel.
 
-
-def smem_bytes(cfg: MachineConfig, L: int) -> int:
-    """Shared memory of one CTA (``layout`` in the source): each warp's
-    program rows, memory image, register file ([NR][32]), WS and REC
-    stacks, Bx file and skip flags."""
-    SD = cfg.n_threads + 2
-    per_warp = (_align16(L * 32) + _align16(cfg.mem_size * 4)
-                + _align16(cfg.n_regs * 128) + 4 * _align16(SD * 4)
-                + _align16(cfg.n_bx * 4) + _align16(cfg.n_bx) + _align16(L))
-    return WARPS_PER_CTA * per_warp
+    Everything in shared memory with 4 simulated warps a CTA, else 2, else
+    1: the most whose slices fit the 232,448 bytes a CTA may use.  Past one
+    warp's limit, one warp a CTA with the memory image in global memory;
+    past that, the program rows too; past that, the register file too.
+    Raises ``ValueError`` when even the stacks, the Bx file and the
+    predicates do not fit (an ``n_bx`` or ``n_preds`` in the tens of
+    thousands)."""
+    check_cfg(cfg)
+    out = (ctypes.c_int * 5)()
+    _build.load("hanoi_step").hanoi_layout(
+        L, cfg.n_threads, cfg.n_regs, cfg.n_preds, cfg.n_bx, cfg.mem_size,
+        out)
+    if out[0] == 0:
+        raise ValueError("a warp's stacks, Bx file and predicates do not fit "
+                         f"a CTA's shared memory: n_bx {cfg.n_bx}, n_preds "
+                         f"{cfg.n_preds}")
+    return Layout(out[0], bool(out[1]), bool(out[2]), bool(out[3]), out[4])
 
 
 class _Params(ctypes.Structure):
@@ -44,11 +62,11 @@ class _Params(ctypes.Structure):
         "ws_pc", "ws_mask", "ws_top", "rec_pc", "rec_bx", "rec_top",
         "bx_val", "bx_valid", "waiting", "finished",
         "regs", "preds", "mem", "lane_ids", "trace_pc", "trace_mask",
-        "trace_n", "steps", "fuel", "halted", "error")]
+        "trace_n", "steps", "fuel", "halted", "error", "regs_work")]
         + [(n, ctypes.c_int) for n in ("N", "L", "W", "NR", "NP", "NB",
                                        "M", "T")]
-        + [("full", ctypes.c_uint), ("active0", ctypes.c_uint),
-           ("majority_first", ctypes.c_int)])
+        + [("full", ctypes.c_uint), ("active0", ctypes.c_uint)]
+        + [("majority_first", ctypes.c_int)])
 
 
 def hanoi_run_cuda(programs, skips, regs, mems, lanes, cfg: MachineConfig, *,
@@ -56,8 +74,9 @@ def hanoi_run_cuda(programs, skips, regs, mems, lanes, cfg: MachineConfig, *,
                    active0: int | None = None) -> HanoiState:
     """Launch K1 on contiguous CUDA tensors: programs [N, L, 8] int32,
     skips [N, L] bool, regs [N, W, NR], mems [N, M] and lanes [N, W]
-    int32.  Raises on anything the kernel does not take; never falls
-    back."""
+    int32.  The kernel's layout is :func:`layout`'s for ``cfg`` and the
+    program length.  Raises on anything the kernel does not take; never
+    falls back."""
     check_cfg(cfg)
     dev = programs.device
     ins = (programs, skips, regs, mems, lanes)
@@ -75,10 +94,7 @@ def hanoi_run_cuda(programs, skips, regs, mems, lanes, cfg: MachineConfig, *,
                              f"{t.dtype} {tuple(t.shape)}")
     if N < 1 or L < 1:
         raise ValueError(f"empty batch: {N} warps of {L} rows")
-    if smem_bytes(cfg, L) > SMEM_LIMIT:
-        raise ValueError(f"a CTA would need {smem_bytes(cfg, L)} bytes of "
-                         f"shared memory (limit {SMEM_LIMIT}): L {L}, "
-                         f"mem_size {M}, n_regs {NR}")
+    lay = layout(cfg, L)
     SD, NB, NP, T = W + 2, cfg.n_bx, cfg.n_preds, cfg.max_steps
 
     def out(*shape, dtype=torch.int32):
@@ -94,9 +110,11 @@ def hanoi_run_cuda(programs, skips, regs, mems, lanes, cfg: MachineConfig, *,
         mem=out(N, M), lane_ids=out(N, W), trace_pc=out(N, T),
         trace_mask=out(N, T), trace_n=out(N), steps=out(N), fuel=out(N),
         halted=out(N, dtype=torch.bool), error=out(N))
+    regs_work = out(N, NR, 32) if lay.global_regs else None
     full = cfg.full_mask
     params = _Params(
         *(t.data_ptr() for t in ins), *(t.data_ptr() for t in st),
+        None if regs_work is None else regs_work.data_ptr(),
         N, L, W, NR, NP, NB, M, T, full,
         full if active0 is None else int(active0) & 0xFFFFFFFF,
         int(bool(majority_first)))
@@ -113,6 +131,9 @@ def hanoi_run_cuda(programs, skips, regs, mems, lanes, cfg: MachineConfig, *,
 def _argtypes(lib):
     lib.hanoi_run.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
     lib.hanoi_run.restype = ctypes.c_int
+    lib.hanoi_layout.argtypes = [ctypes.c_int] * 6 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.hanoi_layout.restype = None
 
 
 _build.register("hanoi_step", "hanoi_step.cu", _argtypes)

@@ -12,6 +12,7 @@ from . import flash_attention as _fa
 from . import hanoi_step as _hs
 from . import rglru_scan as _rg
 from . import rwkv6_scan as _rw
+from . import sm_sched as _sm
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -70,7 +71,24 @@ def hanoi_run(programs, skips, regs, mems, lanes, cfg, *,
     return st
 
 
+def sm_schedule(warp_map, trace_n, ops, trace_pc, trace_mask, lat, is_mem, *,
+                out_cap: int, policy: str):
+    """Issue-schedule a grid of SM cells over ``out_cap`` slots: warp_map,
+    trace_n [C, N] int32, ops [U, L] (each trace row's opcode column),
+    trace_pc / trace_mask [U, T] (K1's traces); ``lat`` / ``is_mem`` the
+    per-opcode tables.  Returns a :class:`~.sm_sched.Schedule`."""
+    if warp_map.device.type == "cpu":
+        return _sm.sm_schedule_plain(warp_map, trace_n, ops, trace_pc,
+                                     trace_mask, lat, is_mem,
+                                     out_cap=out_cap, policy=policy)
+    out = _sm.sm_schedule_cuda(warp_map, trace_n, ops, trace_pc, trace_mask,
+                               lat, is_mem, out_cap=out_cap, policy=policy)
+    sm_schedule.launches += 1
+    return out
+
+
 flash_attention.launches = 0
 hanoi_run.launches = 0
+sm_schedule.launches = 0
 rglru_scan.launches = 0
 rwkv6_scan.launches = 0

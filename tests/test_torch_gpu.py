@@ -3,7 +3,11 @@ versions, and the smoke models' prefill on the card held against the port's
 CPU path (which ``test_torch_models.py`` and ``test_torch_recurrent.py``
 hold against JAX).  K1, the Hanoi step machine, is held to its twin bit for
 bit in every field of the state, on the suite and on the divergence traps
-(:func:`hanoi_traps`, which ``test_torch_hanoi.py`` holds to JAX).
+(:func:`hanoi_traps`, which ``test_torch_hanoi.py`` holds to JAX), and at
+each of its layouts' boundaries.  K2, the SM issue scheduler, is held to
+its twin bit for bit in every output, on K1's traces and on synthetic
+grids (:func:`sched_grid`, on which ``test_torch_sm.py`` holds the twin to
+JAX's scheduler).
 
 Every test here needs an NVIDIA GPU: it carries the ``gpu`` marker and skips
 without one.  Run them on the card with
@@ -568,7 +572,8 @@ def test_hanoi_kernel_rejects_what_it_does_not_take(cuda):
                                   *ops_in[3:], cfg)
     with pytest.raises(ValueError, match="n_threads"):
         hanoi_step.hanoi_run_cuda(*ops_in, cfg._replace(n_threads=33))
-    big = cfg._replace(mem_size=1 << 16)
+    # a Bx file that alone overflows a CTA's shared memory
+    big = cfg._replace(n_bx=50_000)
     _, big_in = _hanoi_operands({"fig5": _suite_cases(cfg)["fig5"]}, big,
                                 cuda)
     with pytest.raises(ValueError, match="shared memory"):
@@ -595,3 +600,274 @@ def test_hanoi_kernel_matches_plain_at_odd_shapes(cuda):
         ops_in[1][:, :L].contiguous()
     for majority_first in (True, False):
         _k1_and_twin(names, ops_in, cfg, majority_first=majority_first)
+
+
+def _shape_cases(cfg, extra=()):
+    """The figures and the suite's programs (their memories drawn at the
+    shape's mem_size), and the programs in ``extra``."""
+    from repro_torch.core import programs as P
+    out = {"fig5": (P.fig5_program(), None, None, ()),
+           "fig6": (P.fig6_program(), None, None, ())}
+    for b in P.make_suite(cfg)[:12]:
+        out[b.name] = (b.program, None, b.init_mem, ())
+    out.update(extra)
+    return out
+
+
+# the cases of _k1_layout_boundaries, by name: their shapes come from the
+# layout the built kernel chooses, so they are found on the card
+_K1_LAYOUT_CASES = ("largest_4_warp", "smallest_2_warp", "smallest_1_warp",
+                    "global_memory", "global_program", "global_registers",
+                    "mem_size_16384", "program_2048_rows", "n_regs_512",
+                    "n_preds_40")
+
+
+def _k1_layout_boundaries():
+    """(name, cfg, program rows) at each boundary of K1's layouts: the
+    largest memory image of 4 warps a CTA and the smallest of 2, the first
+    of 1 warp and of the memory image in global memory; the program and
+    then the registers in global memory; and the four shapes the JAX
+    package runs that the first K1 refused."""
+    from repro_torch.core.isa import MachineConfig
+    from repro_torch.kernels import hanoi_step as hs
+    base = MachineConfig(n_threads=32, mem_size=256, max_steps=512)
+
+    def first_mem(pred, lo=1, hi=1 << 20):
+        while lo < hi:                       # smallest mem_size with pred
+            mid = (lo + hi) // 2
+            lo, hi = (mid + 1, hi) if not pred(mid) else (lo, mid)
+        return lo
+
+    def lay(m):
+        return hs.layout(base._replace(mem_size=m), 32)
+
+    m2 = first_mem(lambda m: lay(m).warps < 4)
+    m1 = first_mem(lambda m: lay(m).warps < 2)
+    mg = first_mem(lambda m: lay(m).global_mem)
+    return [("largest_4_warp", base._replace(mem_size=m2 - 1), 32),
+            ("smallest_2_warp", base._replace(mem_size=m2), 32),
+            ("smallest_1_warp", base._replace(mem_size=m1), 32),
+            ("global_memory", base._replace(mem_size=mg), 32),
+            ("global_program", base._replace(mem_size=mg), 8192),
+            ("global_registers", base._replace(mem_size=mg, n_regs=2048),
+             8192),
+            ("mem_size_16384", base._replace(mem_size=16_384), 32),
+            ("program_2048_rows", base, 2048),
+            ("n_regs_512", base._replace(n_regs=512), 32),
+            ("n_preds_40", base._replace(n_preds=40), 32)]
+
+
+def _wide_programs(cfg):
+    """Programs that reach what the repaired shapes add: high registers,
+    predicates past the first word, a long straight line."""
+    from repro_torch.core.asm import assemble
+    hi_r = min(cfg.n_regs - 1, 511)
+    out = {"high_regs": (assemble(f"""
+        LANEID R1
+        IADDI R{hi_r}, R1, 5
+        IADDI R{hi_r - 1}, R{hi_r}, 7
+        STG [R1+3], R{hi_r - 1}
+        EXIT"""), None, None, ())}
+    if cfg.n_preds > 32:
+        out["high_preds"] = (assemble("""
+            LANEID R1
+            ISETP.GE P35, R1, 9
+            ISETP.LT P39, R1, 20
+            @P35 IADDI R2, R1, 7
+            @!P39 IADDI R3, R1, 9
+            BSSY B0, join
+            @P35 BRA right
+            IADDI R4, R1, 1
+            BRA join
+        right:
+            IADDI R4, R1, 2
+        join:
+            BSYNC B0
+            ISETP.EQ P33, R4, 11
+            @P33 MOV R5, 11
+            EXIT"""), None, None, ())
+    return out
+
+
+@pytest.mark.parametrize("name", _K1_LAYOUT_CASES)
+def test_hanoi_kernel_matches_plain_at_layout_boundaries(cuda, name):
+    """K1 against its twin, every field bit for bit, at each layout
+    boundary; the layout is the one ``hanoi_step.layout`` chose."""
+    from repro_torch.core.isa import Op
+    from repro_torch.kernels import hanoi_step as hs
+    bounds = _k1_layout_boundaries()
+    assert tuple(c[0] for c in bounds) == _K1_LAYOUT_CASES
+    _, cfg, L = next(c for c in bounds if c[0] == name)
+    cases = _shape_cases(cfg, _wide_programs(cfg))
+    if L >= 2048:                      # a straight line through every row
+        line = np.zeros((L - 1, 8), np.int32)
+        line[:, 0], line[:, 1], line[:, 2], line[:, 5] = (
+            int(Op.IADDI), 2, 2, 1)
+        cases["straight_line"] = (np.concatenate(
+            [line, [[int(Op.EXIT)] + [0] * 7]]).astype(np.int32), None,
+            None, ())
+    names, ops_in = _hanoi_operands(cases, cfg, cuda)
+    pad = L - ops_in[0].shape[1]
+    if pad > 0:                        # EXIT rows nobody reaches
+        progs = torch.zeros((len(names), L, 8), dtype=torch.int32,
+                            device=cuda)
+        progs[:, :, 0] = int(Op.EXIT)
+        progs[:, :ops_in[0].shape[1]] = ops_in[0]
+        skips = torch.zeros((len(names), L), dtype=torch.bool, device=cuda)
+        ops_in[0], ops_in[1] = progs, skips
+    lay = hs.layout(cfg, ops_in[0].shape[1])
+    expect = {"largest_4_warp": 4, "smallest_2_warp": 2,
+              "smallest_1_warp": 1}
+    if name in expect:
+        assert (lay.warps, lay.global_mem) == (expect[name], False)
+    if name.startswith("global"):
+        assert lay.warps == 1 and lay.global_mem
+        assert lay.global_prog == (name != "global_memory")
+        assert lay.global_regs == (name == "global_registers")
+    st = _k1_and_twin(names, ops_in, cfg)
+    assert int(st.steps.max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# K2, the SM issue scheduler
+# ---------------------------------------------------------------------------
+
+def sched_grid(seed, C, N, *, U=7, L=9, T=40, all_memory=False):
+    """A synthetic K2 grid as numpy: ``(warp_map, trace_n, ops, trace_pc,
+    trace_mask)`` with pcs out of the program (they read as NOP), opcodes
+    out of range (clipped), empty traces and random u32 masks; with
+    ``all_memory`` every opcode is LDG, so every warp waits on memory."""
+    rng = np.random.default_rng(seed)
+    trace_n = rng.integers(0, T + 1, (C, N)).astype(np.int32)
+    trace_n[rng.random((C, N)) < 0.15] = 0
+    warp_map = rng.integers(0, U, (C, N)).astype(np.int32)
+    trace_pc = rng.integers(-2, L + 2, (U, T)).astype(np.int32)
+    trace_mask = rng.integers(0, 1 << 32, (U, T), dtype=np.uint64) \
+        .astype(np.uint32).view(np.int32)
+    ops = (np.full((U, L), 24, np.int32) if all_memory
+           else rng.integers(-3, 33, (U, L)).astype(np.int32))
+    return warp_map, trace_n, ops, trace_pc, trace_mask
+
+
+SCHED_LATENCIES = {"default": {}, "alu4_mem100": {"alu_latency": 4,
+                                                  "memory_latency": 100}}
+
+
+def _sched_tables(which):
+    from repro_torch.engine.mechanisms.sm_torch import _latency_tables
+    from repro_torch.timing import CycleConfig
+    return _latency_tables(CycleConfig(scoreboard=False,
+                                       **SCHED_LATENCIES[which]))
+
+
+def _k2_and_twin(args, lat, is_mem, *, out_cap, policy):
+    from repro_torch.kernels.sm_sched import sm_schedule_plain
+    before = ops.sm_schedule.launches
+    got = ops.sm_schedule(*args, lat, is_mem, out_cap=out_cap, policy=policy)
+    again = ops.sm_schedule(*args, lat, is_mem, out_cap=out_cap,
+                            policy=policy)
+    torch.cuda.synchronize()
+    assert ops.sm_schedule.launches == before + 2
+    want = sm_schedule_plain(*args, lat, is_mem, out_cap=out_cap,
+                             policy=policy)
+    for k in want._fields:
+        g, a, w = getattr(got, k), getattr(again, k), getattr(want, k)
+        assert g.shape == w.shape and g.dtype == w.dtype, k
+        assert torch.equal(g, w), k
+        assert torch.equal(g, a), k
+    return got
+
+
+@pytest.mark.parametrize("N", [1, 7, 32, 64, 100])
+@pytest.mark.parametrize("policy", ["greedy_then_oldest", "round_robin",
+                                    "oldest_first"])
+def test_sm_sched_kernel_matches_plain(cuda, N, policy):
+    """K2 against its twin, every output bit for bit (the fill included)
+    and two launches alike, on synthetic grids: one hardware warp a cell up
+    to 32 warps, a CTA a cell past that; default and slow latencies, and a
+    grid where every warp waits on memory."""
+    for seed, which, all_memory in ((N, "default", False),
+                                    (N + 1, "alu4_mem100", False),
+                                    (N + 2, "alu4_mem100", True)):
+        args = [torch.from_numpy(a).to(cuda)
+                for a in sched_grid(seed, 9, N, all_memory=all_memory)]
+        total = int(args[1].sum(1).max())
+        s = _k2_and_twin(args, *_sched_tables(which),
+                         out_cap=max(32, -(-total // 32) * 32),
+                         policy=policy)
+        if all_memory:
+            assert int(s.mstall.sum()) > 0
+
+
+def test_sm_sched_kernel_on_k1_traces(cuda):
+    """K2 reads K1's trace buffers in place: the suite at 8 threads, cells
+    of 1, 8, 32 and 64 warps drawn from its rows, every policy."""
+    from repro_torch.core.isa import MachineConfig
+    from repro_torch.engine.mechanisms.sm_torch import _out_capacity
+    cfg = MachineConfig(n_threads=8, max_steps=1024)
+    names, ops_in = _hanoi_operands(_suite_cases(cfg), cfg, cuda)
+    st = ops.hanoi_run(*ops_in, cfg)
+    code = ops_in[0][:, :, 0].contiguous()
+    rng = np.random.default_rng(0)
+    for N in (1, 8, 32, 64):
+        warp_map = torch.from_numpy(rng.integers(
+            0, len(names), (6, N)).astype(np.int32)).to(cuda)
+        trace_n = st.trace_n[warp_map.long()]
+        out_cap = _out_capacity(int(trace_n.sum(1).max()))
+        for policy in ("greedy_then_oldest", "round_robin", "oldest_first"):
+            _k2_and_twin([warp_map, trace_n, code, st.trace_pc,
+                          st.trace_mask], *_sched_tables("default"),
+                         out_cap=out_cap, policy=policy)
+
+
+def test_sm_sched_kernel_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import sm_sched
+    args = [torch.from_numpy(a).to(cuda) for a in sched_grid(0, 2, 4)]
+    lat, is_mem = _sched_tables("default")
+    with pytest.raises(ValueError, match="one CUDA device"):
+        sm_sched.sm_schedule_cuda(args[0].cpu(), *args[1:], lat, is_mem,
+                                  out_cap=64, policy="round_robin")
+    with pytest.raises(ValueError, match="multiple of 32"):
+        sm_sched.sm_schedule_cuda(*args, lat, is_mem, out_cap=40,
+                                  policy="round_robin")
+    with pytest.raises(TypeError, match="int32"):
+        sm_sched.sm_schedule_cuda(args[0].long(), *args[1:], lat, is_mem,
+                                  out_cap=64, policy="round_robin")
+
+
+def test_sm_torch_on_card_matches_cpu(cuda):
+    """``run_batch(mechanism="sm_torch")`` on the card: one K1 and one K2
+    launch for the grid, every SmResult equal to the CPU twins' and to
+    ``sm_interleave``."""
+    from repro_torch.core.isa import MachineConfig
+    from repro_torch.core.programs import make_suite
+    from repro_torch.engine import SimRequest, Simulator
+    cfg = MachineConfig(n_threads=32, mem_size=256, max_steps=1024)
+    suite = make_suite(cfg)
+    sim = Simulator()
+    for policy in ("greedy_then_oldest", "round_robin", "oldest_first"):
+        meta = {"sm_warps": 8, "sm_policy": policy,
+                "sm_inner": "hanoi_torch"}
+        reqs = [SimRequest(program=b.program, cfg=cfg, name=b.name,
+                           init_mem=b.init_mem, meta=meta) for b in suite]
+        k1, k2 = ops.hanoi_run.launches, ops.sm_schedule.launches
+        got = sim.run_batch(reqs, mechanism="sm_torch")
+        assert (ops.hanoi_run.launches, ops.sm_schedule.launches) == \
+            (k1 + 1, k2 + 1)
+        want = sim.run_batch([SimRequest(
+            program=q.program, cfg=cfg, name=q.name, init_mem=q.init_mem,
+            meta={**meta, "device": "cpu"}) for q in reqs[:6]],
+            mechanism="sm_torch")
+        for a, b in zip(got, want):
+            sa, sb = a.meta["sm"], b.meta["sm"]
+            assert sa.sm_trace == sb.sm_trace
+            assert (sa.cycles, sa.stall_breakdown, sa.busy_cycles,
+                    sa.thread_instructions) == (sb.cycles, sb.stall_breakdown,
+                                                sb.busy_cycles,
+                                                sb.thread_instructions)
+        longest = max(got, key=lambda r: r.steps).meta["sm"]
+        ref = sim.run_sm(list(longest.requests), policy=policy,
+                         inner="hanoi_torch")
+        assert ref.mechanism == "sm_interleave"
+        assert (longest.sm_trace, longest.cycles, longest.stall_breakdown) \
+            == (ref.sm_trace, ref.cycles, ref.stall_breakdown)

@@ -174,8 +174,30 @@ def assert_matches_numpy(st: dict, i: int, ref, cfg):
 # ---------------------------------------------------------------------------
 
 RUNS = {"w4": (CFG4, True),
-        "w4_nbx2_minority": (CFG4._replace(n_bx=2), False)}
+        "w4_nbx2_minority": (CFG4._replace(n_bx=2), False),
+        # more predicates than one 32-bit word a lane
+        "w4_npreds40": (CFG4._replace(n_preds=40), True)}
 CASES = {run: _cases(cfg) for run, (cfg, _) in RUNS.items()}
+# a divergent branch and guards on predicates past the first word
+CASES["w4_npreds40"]["preds40"] = (jprograms.assemble("""
+    LANEID R1
+    ISETP.GE P35, R1, 2
+    ISETP.LT P39, R1, 3
+    @P35 IADDI R2, R1, 7
+    @!P39 IADDI R3, R1, 9
+    BSSY B0, join
+    @P35 BRA right
+    IADDI R4, R1, 1
+    BRA join
+right:
+    IADDI R4, R1, 2
+join:
+    BSYNC B0
+    ISETP.EQ P33, R4, 3
+    @P33 MOV R5, 11
+    @!P0 MOV R6, 5
+    EXIT
+"""), None, None, None, ())
 
 
 @pytest.fixture(scope="module")

@@ -68,7 +68,7 @@ def test_port_imports_neither_jax_nor_repro():
                               "PATH": "/usr/bin:/bin"},
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert int(res.stdout.split()[0]) >= 43, res.stdout
+    assert int(res.stdout.split()[0]) >= 53, res.stdout
 
 
 @pytest.mark.parametrize("smoke", [True, False])
