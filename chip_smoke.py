@@ -32,8 +32,8 @@ main paths at full width, with random weights or data drawn from a seed:
   against the chunked form, and layer 0's time mix with ``use_kernel=True``
   through K5, held against the scan;
 - ``serve`` of 4 requests on each of the three models, in f32;
-- the simulator: ``Simulator.run_batch(mechanism="hanoi_torch")`` over
-  8,448 simulated warps (one full residency of the card, 132 SMs x 64
+- the simulator: ``Simulator().run_batch`` (its default mechanism,
+  ``hanoi_torch``, on the card) over 8,448 simulated warps (one full residency of the card, 132 SMs x 64
   warps; the suite's 23 programs in turn, each warp with its own memory)
   at the paper's evaluation config, in one launch of K1, every warp held
   to the twin and one warp of each program to the numpy ``run_hanoi``;
@@ -44,7 +44,8 @@ main paths at full width, with random weights or data drawn from a seed:
   8 warps under greedy-then-oldest, and a ``run_cells`` grid of 264
   heterogeneous cells of 32 warps under round robin, each in one launch of
   K1 and one of K2, every SmResult held to the twins' and the longest cell
-  of each policy to ``sm_interleave``; then Fig 10 through
+  of each policy to ``sm_interleave`` (the third policy through
+  ``Simulator().run_sm``'s defaults, ``sm_torch``); then Fig 10 through
   ``compare(timing="cycle")``, row for row the numpy ``hanoi``'s.
 
 Every kernel's launch count is set to 0 just before each path and read just
@@ -53,6 +54,14 @@ should fails the run.  Then it times each kernel beside its bound, its plain
 version and, where one exists, one PyTorch call computing the same function,
 prints one JSON line of kernel numbers and, last, one JSON line naming the
 device.  Any failed phase, or no GPU, exits non-zero before that last line.
+
+    python3 chip_smoke.py --k1k2-times [--src DIR]
+
+times only K1 at the simulator phase's shape (and at 4,096 slots of fuel,
+its stepping with a 16th of the fill) and K2 at the SM model's grids (a)
+and (b), with the package under ``DIR`` (default: this checkout's ``src``), and
+prints them as one JSON line: run it on two trees in one call, in turns, to
+compare them on one card.
 """
 from __future__ import annotations
 
@@ -177,11 +186,73 @@ def bound(flops: int, nbytes: int, dtype) -> tuple[float, str]:
                                  else "bytes")
 
 
+def sim_requests(SimRequest, programs, sim_cfg, n):
+    """n warp requests: warp w runs the suite's program w mod 23 on memory
+    drawn by the suite's own generator from SEED + w.  A program the suite
+    runs on zeroed memory (the spinlock, CALLS, the figures) keeps it: a
+    spinlock whose lock word starts taken spins until its 60,000 slots are
+    spent."""
+    suite = programs.make_suite(sim_cfg)
+    return [SimRequest(program=b.program, cfg=sim_cfg, name=b.name,
+                       init_mem=None if b.init_mem is None
+                       else programs._mem(sim_cfg, SEED + w))
+            for w, b in ((w, suite[w % len(suite)]) for w in range(n))]
+
+
+def k1k2_times(src: Path) -> int:
+    """K1's ms at the simulator phase's shape and K2's at grid (a), with
+    the package under ``src``; one JSON line."""
+    sys.path.insert(0, str(src))
+    from repro_torch.core import programs
+    from repro_torch.core.isa import MachineConfig
+    from repro_torch.engine import SimRequest
+    from repro_torch.engine.adapters import _batch_arrays, padded_len
+    from repro_torch.engine.mechanisms import sm_torch
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    sim_cfg = MachineConfig(n_threads=32, mem_size=256, max_steps=60_000)
+    reqs = sim_requests(SimRequest, programs, sim_cfg, SIM_WARPS)
+    L = padded_len(max(r.program.shape[0] for r in reqs))
+    ins = [torch.from_numpy(a).to(dev) for a in _batch_arrays(reqs, sim_cfg,
+                                                               L)]
+    k1_ms = cuda_time_ms(lambda: ops.hanoi_run(*ins, sim_cfg), 5, warmup=1)
+    # its stepping with a 16th of the fill: the same traces at 4,096 fuel
+    short_cfg = sim_cfg._replace(max_steps=4096)
+    k1_short_ms = cuda_time_ms(lambda: ops.hanoi_run(*ins, short_cfg), 5,
+                               warmup=1)
+    del ins
+
+    def k2_ms(cells, policy):
+        grid = sm_torch.grid_of(cells, policy=policy,
+                                inner_label="hanoi_torch")
+        st = ops.hanoi_run(*grid.warp_operands, grid.cfg)
+        warp_map, trace_n, out_cap = sm_torch.schedule_operands(grid, st)
+        lat, is_mem = sm_torch._latency_tables(grid.ccfg)
+        return cuda_time_ms(lambda: ops.sm_schedule(
+            warp_map, trace_n, grid.ops, st.trace_pc, st.trace_mask, lat,
+            is_mem, out_cap=out_cap, policy=grid.policy), 10)
+
+    # the SM model's grids (a) and (b), as its phase builds them
+    k2_a = k2_ms([[r] * SM_WARPS_A for r in reqs[:SM_CELLS_A]],
+                 "greedy_then_oldest")
+    k2_b = k2_ms([reqs[c * SM_WARPS_B:(c + 1) * SM_WARPS_B]
+                  for c in range(SM_CELLS_B)], "round_robin")
+    print(json.dumps({"src": str(src), "k1_ms": k1_ms,
+                      "k1_ms_fuel_4096": k1_short_ms, "k2_ms": k2_a,
+                      "k2_ms_grid_b": k2_b}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs only "
               "on an NVIDIA GPU", file=sys.stderr)
         return 1
+    if "--k1k2-times" in sys.argv:
+        at = sys.argv.index("--src") + 1 if "--src" in sys.argv else 0
+        return k1k2_times(Path(sys.argv[at]).resolve() if at
+                          else ROOT / "src")
     sys.path.insert(0, str(ROOT / "src"))
     import torch.nn.functional as F
 
@@ -729,21 +800,15 @@ def main() -> int:
     # 5b. the simulator at full size: one launch of K1 through run_batch ----
     sim_cfg = MachineConfig(n_threads=32, mem_size=256, max_steps=60_000)
     suite = programs.make_suite(sim_cfg)
-    # warp w runs the suite's program w mod 23 on memory drawn by the
-    # suite's own generator from SEED + w.  A program the suite runs on
-    # zeroed memory (the spinlock, CALLS, the figures) keeps it: a spinlock
-    # whose lock word starts taken spins until its 60,000 slots are spent.
-    reqs = [SimRequest(program=b.program, cfg=sim_cfg, name=b.name,
-                       init_mem=None if b.init_mem is None
-                       else programs._mem(sim_cfg, SEED + w))
-            for w, b in ((w, suite[w % len(suite)])
-                         for w in range(SIM_WARPS))]
-    sim = Simulator()
-    warm = sim.run_batch(reqs[:len(suite)], mechanism="hanoi_torch")
+    reqs = sim_requests(SimRequest, programs, sim_cfg, SIM_WARPS)
+    sim = Simulator()             # hanoi_torch on the card: the defaults
+    check(sim.mechanism == "hanoi_torch", f"Simulator()'s default "
+          f"mechanism is {sim.mechanism}")
+    warm = sim.run_batch(reqs[:len(suite)])
     results, sim_wall, got = run_path(
-        "simulator run_batch",
-        lambda: sim.run_batch(reqs, mechanism="hanoi_torch"),
-        {"hanoi_run": 1})
+        "simulator run_batch", lambda: sim.run_batch(reqs), {"hanoi_run": 1})
+    check(all(r.mechanism == "hanoi_torch" for r in results),
+          "Simulator().run_batch did not run hanoi_torch")
     check(len(results) == SIM_WARPS, "run_batch lost results")
     L, ins = hanoi_operands(reqs, sim_cfg)
     k1_state = ops.hanoi_run(*ins, sim_cfg)       # the kernel's whole state
@@ -799,6 +864,34 @@ def main() -> int:
     # the trace buffers' -1 / 0 fill alone, as PyTorch's fill kernels do it
     fill_ms = cuda_time_ms(lambda: (k1_state.trace_pc.fill_(-1),
                                     k1_state.trace_mask.fill_(0)), 5)
+    fill_bytes = 8 * int((sim_cfg.max_steps - twin.trace_n.long()).sum())
+    # K1's stepping with a 16th of the fill: the same warps at 4,096 slots
+    # of fuel, which every one of them halts within (the same traces)
+    short_cfg = sim_cfg._replace(max_steps=4096)
+    check(int(slots.max()) < short_cfg.max_steps, "a warp runs past 4096 "
+          "slots: the short-fuel run would cut its trace")
+    short = ops.hanoi_run(*ins, short_cfg)
+    check(torch.equal(short.trace_n, twin.trace_n)
+          and torch.equal(short.trace_pc, twin.trace_pc[:, :4096]),
+          "K1 at 4096 slots of fuel: traces differ from the full run's")
+    k1_short_ms = cuda_time_ms(lambda: ops.hanoi_run(*ins, short_cfg), 5,
+                               warmup=1)
+    del short
+    # the default layout's builds: registers capped for more CTAs an SM;
+    # each held to the twin, then timed in turns
+    sweep_ms = {mb: [] for mb in hs.MIN_BLOCKS}
+    for mb in hs.MIN_BLOCKS:
+        bad, _ = state_diff(hs.hanoi_run_cuda(*ins, sim_cfg, min_blocks=mb),
+                            twin)
+        check(not bad, f"K1 min_blocks {mb}: {bad} differ from the twin")
+    for _ in range(2):
+        for mb in hs.MIN_BLOCKS:
+            sweep_ms[mb].append(cuda_time_ms(lambda: hs.hanoi_run_cuda(
+                *ins, sim_cfg, min_blocks=mb), 5, warmup=1))
+    phase("kernel_sweep", kernel="hanoi_step", over="min_blocks",
+          ms={mb: [f"{t:.4f}" for t in ts] for mb, ts in sweep_ms.items()},
+          ptxas={k: v for k, v in ptxas["hanoi_step"].items()
+                 if k.startswith("hanoi_kernel<4,0,0,")})
     k1_bytes = hs.run_bytes(k1_state, L)
     t_bytes = k1_bytes / PEAK_BYTES_PER_S * 1e3
     t_slots = int(slots.max()) * SLOT_CYCLES / CLOCK_HZ * 1e3
@@ -812,11 +905,22 @@ def main() -> int:
         "warps_per_s": SIM_WARPS / sim_wall,
         "slots_per_s": int(slots.sum()) / sim_wall,
         "k1_ms": k1_ms, "twin_s": twin_s, "trace_fill_ms": fill_ms,
+        "trace_fill_bytes": fill_bytes, "k1_ms_fuel_4096": k1_short_ms,
+        "trace_fill_share_of_k1_bytes": fill_bytes / k1_bytes,
+        "k1_ms_by_min_blocks": {mb: min(ts) for mb, ts in sweep_ms.items()},
         "numpy_run_hanoi_s": numpy_s,
         "numpy_host_slots_per_s": numpy_slots / numpy_s,
         "k1_bytes": k1_bytes, "bound_ms_bytes": t_bytes,
         "bound_ms_slots": t_slots,
         "layout": hs.layout(sim_cfg, L)._asdict()}
+    phase("kernel_time", kernel="hanoi_step",
+          shape=f"{SIM_WARPS} warps x 32 threads, max_steps 60000",
+          ms=f"{k1_ms:.4f}", plain_ms=f"{twin_s * 1e3:.4f}", library_ms=None,
+          trace_fill_ms=f"{fill_ms:.4f}", trace_fill_bytes=fill_bytes,
+          ms_fuel_4096=f"{k1_short_ms:.4f}",
+          bytes=k1_bytes, bound_ms=f"{k1_bound[0]:.4f}",
+          bound_by=k1_bound[1], roofline_share=f"{k1_bound[0] / k1_ms:.4f}",
+          ptxas=json.dumps(ptxas["hanoi_step"]))
     phase("simulator", mechanism="hanoi_torch", launches=got,
           statuses=dict(collections.Counter(r.status.value for r in results)),
           **{k: (f"{v:.4f}" if isinstance(v, float) else v)
@@ -935,7 +1039,7 @@ def main() -> int:
             check(not bad, f"{label} cell {c}: {bad} differ from the twins'")
         longest = max(range(len(sms)), key=lambda c: sms[c].steps)
         ref = sim.run_sm(list(sms[longest].requests), policy=policy,
-                         inner="hanoi_torch")
+                         inner="hanoi_torch", sm_mechanism="sm_interleave")
         bad = sm_diff(sms[longest], ref)
         check(ref.mechanism == "sm_interleave" and not bad,
               f"{label} longest cell: {bad} differ from sm_interleave")
@@ -990,14 +1094,20 @@ def main() -> int:
     sm_b, (_, _, _, longest_b) = sm_grid_phase(
         "b: run_cells 264 x 32", sms_b, wall_b, got, cells_b, "round_robin",
         runs_b)
-    # the third policy on the heterogeneous grid's longest cell
+    # the third policy on the heterogeneous grid's longest cell, through
+    # run_sm's defaults: sm_torch over hanoi_torch, on the card
     cell = list(longest_b.requests)
-    oldest = sim.run_sm(cell, policy="oldest_first", sm_mechanism="sm_torch")
-    ref = sim.run_sm(cell, policy="oldest_first", inner="hanoi_torch")
+    oldest, _, got = run_path(
+        "sm run_sm", lambda: sim.run_sm(cell, policy="oldest_first"),
+        {"hanoi_run": 1, "sm_schedule": 1})
+    ref = sim.run_sm(cell, policy="oldest_first", inner="hanoi_torch",
+                     sm_mechanism="sm_interleave")
     bad = sm_diff(oldest, ref)
-    check(not bad, f"oldest_first on the longest cell: {bad} differ from "
-          "sm_interleave")
-    phase("sm", grid="b: longest cell, oldest_first", slots=oldest.steps,
+    check(oldest.mechanism == "sm_torch" and not bad,
+          f"oldest_first on the longest cell: {oldest.mechanism}, {bad} "
+          "differ from sm_interleave")
+    phase("sm", grid="b: longest cell, oldest_first, run_sm defaults",
+          mechanism=oldest.mechanism, launches=got, slots=oldest.steps,
           cycles=oldest.cycles, held_to="sm_interleave", bit_equal=not bad)
     del sms_b, cells_b
     torch.cuda.empty_cache()
@@ -1118,9 +1228,14 @@ def main() -> int:
     # minimum and the issued warp's update; sm_sched.slot_chain_cycles),
     # measured on this card, at the data sheet's boost clock
     slot_cycles = sm_sched.slot_chain_cycles(dev)
+    # the narrow slot's own chain as built, without its memory traffic and
+    # counters: what K2's cycles a slot lose beyond it is the rest
+    link_cycles = sm_sched.slot_chain_cycles(dev, narrow_link=True)
     t_slots = sm_a["longest_cell_slots"] * slot_cycles / CLOCK_HZ * 1e3
     k2_bound = (max(t_bytes, t_slots),
                 "bytes" if t_bytes >= t_slots else "operations")
+    # the kernel's own cycles a slot of the longest cell, at the same clock
+    k2_slot_cycles = k2_ms * 1e-3 * CLOCK_HZ / sm_a["longest_cell_slots"]
     phase("kernel_time", kernel="sm_sched",
           shape=f"{SM_CELLS_A} cells x {SM_WARPS_A} warps, out_cap "
                 f"{out_cap_a}", ms=f"{k2_ms:.4f}",
@@ -1129,6 +1244,9 @@ def main() -> int:
           bound_by=k2_bound[1], bound_ms_bytes=f"{t_bytes:.4f}",
           bound_ms_slots=f"{t_slots:.4f}",
           slot_chain_cycles=f"{slot_cycles:.2f}",
+          cycles_per_slot=f"{k2_slot_cycles:.2f}",
+          narrow_link_cycles=f"{link_cycles:.2f}",
+          share_of_slot_chain=f"{slot_cycles / k2_slot_cycles:.4f}",
           roofline_share=f"{k2_bound[0] / k2_ms:.4f}",
           ptxas=json.dumps(ptxas["sm_sched"]))
 
@@ -1137,6 +1255,7 @@ def main() -> int:
                   "(torch has no scan)")
     print(json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
+         "status": "redesigned",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:110",
          "launches": sum(launches["flash_attention"].values()),
@@ -1147,6 +1266,7 @@ def main() -> int:
          "hd320": {"max_abs_err": errs["gemma3_local_bf16"],
                    **attn_gemma3}},
         {"name": "rglru_scan", "route": "cuda",
+         "status": "redesigned",
          "source": "src/repro_torch/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan.py:46",
          "launches": sum(launches["rglru_scan"].values()),
@@ -1160,6 +1280,7 @@ def main() -> int:
          "ptxas": ptxas["rglru_scan"],
          **{case: bits[case] for case in bits if case.startswith("rglru")}},
         {"name": "rwkv6_scan", "route": "cuda",
+         "status": "redesigned",
          "source": "src/repro_torch/csrc/rwkv6_scan.cu",
          "replaces": "src/repro/kernels/rwkv6_scan.py:52",
          "launches": sum(launches["rwkv6_scan"].values()),
@@ -1173,6 +1294,7 @@ def main() -> int:
          "ptxas": ptxas["rwkv6_scan"],
          **{case: bits[case] for case in bits if case.startswith("rwkv")}},
         {"name": "hanoi_step", "route": "cuda",
+         "status": "redesigned",
          "source": "src/repro_torch/csrc/hanoi_step.cu",
          "replaces": "src/repro/core/hanoi.py:470",
          "launches": sum(launches["hanoi_run"].values()),
@@ -1182,11 +1304,15 @@ def main() -> int:
          "ms": k1_ms, "plain_ms": twin_s * 1e3,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
          "library_ms": None,
-         "library_note": "no PyTorch call interprets a program",
+         "library_note": "no PyTorch call interprets a program; "
+                         "trace_fill_ms is torch's fill_ of the trace "
+                         "buffers alone",
+         "trace_fill_ms": fill_ms, "trace_fill_bytes": fill_bytes,
          "ptxas": ptxas["hanoi_step"], "checks": k1_checks,
          "layout_checks": k1_layouts,
          "simulator": sim_numbers, "fig9_mean_discrepancy": fig9_mean},
         {"name": "sm_sched", "route": "cuda",
+         "status": "redesigned",
          "source": "src/repro_torch/csrc/sm_sched.cu",
          "replaces": "src/repro/engine/mechanisms/sm_jax.py:137",
          "launches": sum(launches["sm_schedule"].values()),
@@ -1198,6 +1324,8 @@ def main() -> int:
          "library_ms": None,
          "library_note": "no PyTorch call schedules warps",
          "slot_chain_cycles": slot_cycles,
+         "cycles_per_slot": k2_slot_cycles,
+         "narrow_link_cycles": link_cycles,
          "ptxas": ptxas["sm_sched"], "checks": k2_checks,
          "sm_a": sm_a, "sm_b": sm_b,
          "fig10_mean_abs_ipc_delta": fig10_mean},

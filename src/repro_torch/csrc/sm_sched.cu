@@ -27,26 +27,43 @@
 //
 // Two layouts:
 //   - cells of up to 32 warps (sched_warp_kernel): one hardware warp a cell,
-//     4 cells a CTA; lane w holds warp w's cursor, ready time, memory flag
-//     and in-order time in registers.  The earliest time and the argmin come
-//     from __reduce_min_sync (the argmin over (key << 5) | lane), the ready
-//     set and its size from __ballot_sync / __popc, the gap's class from
-//     __any_sync, the latency of an opcode from the lane that holds it
-//     (__shfl_sync).  Each lane keeps the next 4 to 8 entries of its warp's
-//     trace in registers, loaded 4 at a time, 4 entries ahead of use.  32
-//     slots of output are buffered, one a lane, and stored together,
-//     coalesced.
+//     up to 8 cells a CTA, as many as spread the grid over every SM; lane w
+//     holds warp w's state.  A slot is one link of a
+//     dependent chain, and a warp issues in order, so every instruction that
+//     waits on a result, and every branch, lengthens the slot.  The design
+//     keeps only the link on the chain:
+//       * one warp-wide minimum a slot picks both the slot's time and its
+//         warp: each pending lane offers (wait, key, lane) packed in a word,
+//         its wait the cycles until it is ready (0 when it is), so the
+//         minimum's wait is the idle gap and its lane the argmin among the
+//         warps ready after it.  Where a wait could pass the word's 21 bits
+//         (latencies near 2^21, or a cycle that wraps), a separate build
+//         resolves a saturated minimum exactly with two more minima;
+//       * each lane keeps its warp's next issue ready (pc, mask, latency and
+//         memory flag) and the three after it in stages; the issued lane
+//         advances them in the next slot, while that slot's minimum is in
+//         flight, by predicated loads that the advance after consumes;
+//       * each lane's trace comes through a ring of 64 entries in shared
+//         memory, topped up by cp.async once every 16 slots, 16 to 40
+//         entries ahead (the copies of one top-up are waited for at the
+//         next); the cell's opcode columns are staged in shared memory at
+//         the start (read through the read-only path when they do not fit);
+//       * the issued lane writes its slot (pc, mask) into a shared staging
+//         buffer, flushed coalesced every 16 slots; the counters (the ready
+//         count, the gap's class, thread instructions) are votes read a slot
+//         later and selects.  The slot loop is unrolled by 16, so a slot has
+//         no branch.
 //   - wider cells (sched_cta_kernel): one CTA a cell; thread t holds warps
 //     t, t + blockDim, ... in a global scratch buffer; two block reductions
 //     a slot (the earliest time; then the gap's class, the argmin as a
 //     64-bit (key, warp) minimum and the ready count); the issuing warp's
 //     thread reads its entry, updates its state and writes the slot.
 //
-// What bounds it on an H100: each slot is a dependent chain (reductions,
-// then the issued warp's trace entry and opcode, then the update), so a
-// cell's time is its slot count times that chain; the cells run side by
-// side.  The bytes (the traces read once, the slots written once) are a
-// small share.
+// What bounds it on an H100: each slot is a dependent chain (the minimum,
+// then the issued warp's update, then every lane's next word), so a cell's
+// time is its slot count times that chain; the cells run side by side.  The
+// bytes (the traces read once, the slots written once) are a small share.
+// slot_chain_kernel measures the shortest such link on the card.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,12 +88,23 @@ struct SchedParams {
 namespace {
 
 constexpr unsigned ALL = 0xffffffffu;
-constexpr int CELLS = 4;          // cells (hardware warps) a CTA, narrow
+constexpr int MAX_CELLS = 8;      // cells (hardware warps) a CTA, narrow
 constexpr int N_OPS = 29;         // opcodes NOP..ATOMADD
 constexpr int NOP = 0;
-constexpr int GTO = 0, RR = 1;    // timing.policies.POLICY_NAMES order
+constexpr int GTO = 0, RR = 1, OLDEST = 2;   // POLICY_NAMES order
 constexpr int BIG = 0x7fffffff;
 constexpr int WIDE_THREADS = 256;   // a CTA of the wide layout, at most
+// the narrow layout: a block of BLOCK slots between top-ups of a lane's
+// trace ring (RING entries, copied CHUNK at a time, up to AHEAD entries
+// past its cursor: a block reads up to 19 entries past it, and a top-up's
+// copies are read only after the next top-up has waited for them)
+constexpr int BLOCK = 16, RING = 64, CHUNK = 4, AHEAD = 2 * BLOCK + 8;
+constexpr int RING_BYTES = 32 * RING * 4;          // one array, all lanes
+constexpr int WARP_BYTES = 2 * RING_BYTES + 2 * BLOCK * 4;   // + staging
+constexpr int LAT_BYTES = 128;                      // the latency table
+constexpr int SMEM_LIMIT = 232448;  // shared memory a CTA may use (H100)
+// the packed word: wait (21 bits) | key (6 bits) | lane (5 bits)
+constexpr unsigned SAT = (1u << 21) - 1u;
 
 __device__ __forceinline__ int wadd(int a, int b) {
   return int(unsigned(a) + unsigned(b));
@@ -91,12 +119,53 @@ __device__ __forceinline__ int floor_mod(int a, int m) {
   return r < 0 ? r + m : r;
 }
 
-// the element of an 8-entry register ring at position k (no local memory)
-__device__ __forceinline__ int pick8(const int (&a)[8], int k) {
-  int v = a[0];
-#pragma unroll
-  for (int i = 1; i < 8; ++i) v = k == i ? a[i] : v;
-  return v;
+__host__ __device__ inline int align16(int b) { return (b + 15) & ~15; }
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
+}
+
+// dst = *src where pred, else dst unchanged: a predicated load, so that
+// only a later reader of dst waits for it
+__device__ __forceinline__ void ld_shared_if(int& dst, const int* src,
+                                             bool pred) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(src));
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
+               " @p ld.shared.b32 %0, [%1];\n}\n"
+               : "+r"(dst) : "r"(a), "r"(int(pred)) : "memory");
+}
+
+__device__ __forceinline__ void ld_shared_u8_if(int& dst,
+                                                const unsigned char* src,
+                                                bool pred) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(src));
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
+               " @p ld.shared.u8 %0, [%1];\n}\n"
+               : "+r"(dst) : "r"(a), "r"(int(pred)) : "memory");
+}
+
+__device__ __forceinline__ void ld_global_nc_if(int& dst, const int* src,
+                                                bool pred) {
+  asm volatile("{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
+               " @p ld.global.nc.b32 %0, [%1];\n}\n"
+               : "+r"(dst) : "l"(src), "r"(int(pred)));
 }
 
 __device__ __forceinline__ void store_counters(
@@ -110,107 +179,217 @@ __device__ __forceinline__ void store_counters(
 // ---------------------------------------------------------------------------
 // cells of up to 32 warps: one hardware warp a cell
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(CELLS * 32) sched_warp_kernel(SchedParams p) {
+// Dynamic shared memory: the latency table, then for each cell of the CTA
+// its lanes' rings (pc, then mask: [32][RING] each), the staging buffer
+// (pc, mask: [BLOCK] each) and, when STAGED, the opcode of each of its
+// warps' rows ([N][L] bytes, clipped).  EXACT: waits may pass the packed
+// word; vec: the trace rows may be copied 16 bytes at a time.
+//
+// A slot s: every lane's word, the minimum, then (while the minimum is in
+// flight) what slot s - 1 left: the issued lane's output and pipeline
+// advance, and the counters from slot s - 1's votes; then the decode and
+// the update by selects, and the votes of slot s.
+template <int POLICY, bool EXACT, bool STAGED>
+__global__ void __launch_bounds__(MAX_CELLS * 32) sched_warp_kernel(
+    SchedParams p, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* const lat_s = reinterpret_cast<int*>(smem);
+  if (threadIdx.x < 32) lat_s[threadIdx.x] = p.lat[threadIdx.x];
+  __syncthreads();
   const int lane = threadIdx.x & 31;
-  const long long c = (long long)blockIdx.x * CELLS + (threadIdx.x >> 5);
+  const long long c = (long long)blockIdx.x * (blockDim.x >> 5) +
+                      (threadIdx.x >> 5);
   if (c >= p.C) return;                 // the whole warp leaves together
-  const int N = p.N, L = p.L, T = p.T, cap = p.cap, policy = p.policy;
+  const int N = p.N, L = p.L, T = p.T, cap = p.cap;
+  const unsigned is_mem = p.is_mem;
+  unsigned char* const base = smem + LAT_BYTES + (threadIdx.x >> 5) *
+      (WARP_BYTES + (STAGED ? align16(N * L) : 0));
+  int* const rpc = reinterpret_cast<int*>(base) + lane * RING;
+  int* const rmask = reinterpret_cast<int*>(base + RING_BYTES) + lane * RING;
+  int* const st_pc = reinterpret_cast<int*>(base + 2 * RING_BYTES);
+  int* const st_mask = st_pc + BLOCK;
+  unsigned char* const code = base + WARP_BYTES;       // [N][L]
   const bool mine = lane < N;           // lane w is the cell's warp w
   const int row = mine ? p.warp_map[c * N + lane] : 0;
   const int tn = mine ? p.trace_n[c * N + lane] : 0;
-  const int lat_l = p.lat[lane];        // lane k holds opcode k's latency
   const int* const tpc = p.trace_pc + (long long)row * T;
   const int* const tmask = p.trace_mask + (long long)row * T;
   const int* const ops = p.ops + (long long)row * L;
 
-  // the ring: entry e of this warp's trace at position e & 7; it holds
-  // entries [idx - idx % 4, idx - idx % 4 + 8).  An entry past T - 1 reads
-  // entry T - 1, as JAX's gather clamps.
-  int rpc[8], rmask[8];
-  auto refill = [&](int first) {        // first is a multiple of 4
-    int v_pc[4], v_mask[4];
+  // copies of this lane's trace up to entry `upto` (from `fetched`), chunk
+  // k into ring slot k % (RING / CHUNK), as one group; an entry past T - 1
+  // reads entry T - 1, as JAX's gather clamps
+  int fetched = 0;
+  auto top_up = [&](int upto) {
+    for (; mine && fetched < upto; fetched += CHUNK) {
+      const int at = fetched & (RING - 1);
+      if (vec && fetched + CHUNK <= T) {
+        cp_async16(rpc + at, tpc + fetched);
+        cp_async16(rmask + at, tmask + fetched);
+      } else {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int e = min(first + k, T - 1);
-      v_pc[k] = mine ? __ldg(tpc + e) : -1;
-      v_mask[k] = mine ? __ldg(tmask + e) : 0;
+        for (int i = 0; i < CHUNK; ++i) {
+          const int e = min(fetched + i, T - 1);
+          cp_async4(rpc + at + i, tpc + e);
+          cp_async4(rmask + at + i, tmask + e);
+        }
+      }
     }
-    if (first & 4) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) { rpc[4 + k] = v_pc[k]; rmask[4 + k] = v_mask[k]; }
+    cp_async_commit();
+  };
+  top_up(AHEAD);
+  if (STAGED) {                         // each warp's row's opcodes, clipped
+    for (int w = 0; w < N; ++w) {
+      const int* const o = p.ops + (long long)__shfl_sync(ALL, row, w) * L;
+      for (int i = lane; i < L; i += 32)
+        code[w * L + i] = (unsigned char)min(max(__ldg(o + i), 0), N_OPS - 1);
+    }
+  }
+  cp_async_wait<0>();
+  __syncwarp();                         // every lane's copies and opcodes
+
+  // the opcode of a trace entry's pc (NOP outside the program), into op
+  // where pred
+  auto opcode_if = [&](int& op, int pc, bool pred) {
+    const bool in = pc >= 0 && pc < L;
+    op = pred ? NOP : op;
+    if constexpr (STAGED) {
+      ld_shared_u8_if(op, code + lane * L + (in ? pc : 0), pred && in);
     } else {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) { rpc[k] = v_pc[k]; rmask[k] = v_mask[k]; }
+      ld_global_nc_if(op, ops + (in ? pc : 0), pred && in);
     }
   };
-  refill(0);
-  refill(4);
+  // the lane's pipeline: entries idx and idx + 1 with their latency and
+  // memory flag (q0, q1), entry idx + 2 with its opcode (q2), entry idx + 3
+  // as read (q3).  An advance consumes only what the previous one loaded.
+  int q0pc = rpc[0], q0m = rmask[0], q1pc = rpc[1], q1m = rmask[1];
+  int q2pc = rpc[2], q2m = rmask[2], q3pc = rpc[3], q3m = rmask[3];
+  int op0 = NOP, op1 = NOP, op2 = NOP;
+  opcode_if(op0, q0pc, mine);
+  opcode_if(op1, q1pc, mine);
+  opcode_if(op2, q2pc, mine);
+  if (!STAGED) op0 = min(max(op0, 0), N_OPS - 1);
+  if (!STAGED) op1 = min(max(op1, 0), N_OPS - 1);
+  int lat0 = lat_s[op0], lat1 = lat_s[op1];
+  bool mem0 = (is_mem >> op0) & 1u, mem1 = (is_mem >> op1) & 1u;
 
-  int idx = 0, t_ready = 0, in_order = 0;
-  bool t_mem = false;
-  const int total = __reduce_add_sync(ALL, tn);
-  int cycle = 0, issued = 0, last = 0, cursor = 0;
-  int busy = 0, istall = 0, sstall = 0, mstall = 0, tinstr = 0;
+  // the warp's state: its cursor, its earliest issue time (the later of its
+  // in-order time and its ready time) and whether it waits on memory
+  int idx = 0, earliest = 0;
+  bool blocked_mem = false;
+  const int total = int(__reduce_add_sync(ALL, unsigned(tn)));
+  const int n = max(0, min(cap, total));   // the slots issued
+  // uniform: the cycle, the last issued warp (GTO's first slot favours
+  // warp 0; round robin's cursor is last + 1, from warp 0)
+  int cycle = 0, last = POLICY == RR ? -1 : 0;
+  int istall = 0, sstall = 0, mstall = 0, tinstr = 0;   // tinstr: this lane's
   int* const ow = p.out_warp + c * cap;
   int* const opc = p.out_pc + c * cap;
   int* const om = p.out_mask + c * cap;
-  int buf_w = -1, buf_pc = -1, buf_mask = 0;   // the slot this lane buffers
+  int buf_w = -1;                       // the slot's warp this lane buffers
+  // what slot s - 1 leaves to slot s: whether this lane issued, the votes
+  // of the warps ready after the gap (and of those blocked on memory among
+  // them), the gap
+  bool issued = false;
+  unsigned ready_votes = 0u, mem_votes = 0u, last_gap = 0u;
+  const unsigned klane = POLICY == GTO ? (unsigned(lane + 1) << 5) | lane
+                                       : (unsigned(lane) << 5) | lane;
+
+  // slot t's deferred half, branch-free: its output, the issued lane's
+  // pipeline advance, its counters
+  auto settle = [&](int t) {
+    if (issued) {                       // predicated stores
+      st_pc[t & (BLOCK - 1)] = q0pc;
+      st_mask[t & (BLOCK - 1)] = q0m;
+    }
+    tinstr = wadd(tinstr, issued ? __popc(unsigned(q0m)) : 0);
+    q0pc = issued ? q1pc : q0pc; q0m = issued ? q1m : q0m;
+    lat0 = issued ? lat1 : lat0; mem0 = issued ? mem1 : mem0;
+    const int op = STAGED ? op2 : min(max(op2, 0), N_OPS - 1);
+    mem1 = issued ? bool((is_mem >> op) & 1u) : mem1;
+    ld_shared_if(lat1, lat_s + op, issued);
+    q1pc = issued ? q2pc : q1pc; q1m = issued ? q2m : q1m;
+    opcode_if(op2, q3pc, issued);
+    q2pc = issued ? q3pc : q2pc; q2m = issued ? q3m : q2m;
+    const int e = (idx + 3) & (RING - 1);
+    ld_shared_if(q3pc, rpc + e, issued);
+    ld_shared_if(q3m, rmask + e, issued);
+    istall += __popc(ready_votes) > 1;
+    mstall = wadd(mstall, mem_votes ? int(last_gap) : 0);
+    sstall = wadd(sstall, mem_votes ? 0 : int(last_gap));
+    buf_w = (t & (BLOCK - 1)) == lane ? last : buf_w;
+  };
+  auto slot = [&](bool settle_prev, int t_prev) {
+    const bool pending = idx < tn;
+    const unsigned wait = earliest > cycle
+        ? unsigned(earliest) - unsigned(cycle) : 0u;
+    const unsigned w = EXACT ? min(wait, SAT) : wait;
+    unsigned word;
+    if constexpr (POLICY == GTO) {
+      word = (w << 11) | (lane == last && wait == 0u ? unsigned(lane) : klane);
+    } else if constexpr (POLICY == RR) {
+      const int d = lane - last - 1;    // (lane - cursor) mod N
+      word = (w << 11) | (unsigned(d < 0 ? d + N : d) << 5) | unsigned(lane);
+    } else {
+      word = (w << 11) | klane;
+    }
+    unsigned m = __reduce_min_sync(ALL, pending ? word : ALL);
+    if (settle_prev) settle(t_prev);    // while the minimum is in flight
+    unsigned gap = m >> 11;
+    bool ready;                         // ready once the gap has passed
+    if (EXACT && gap == SAT) {          // every wait saturated: exactly
+      gap = __reduce_min_sync(ALL, pending ? wait : ALL);
+      ready = pending && wait == gap;
+      m = __reduce_min_sync(ALL, ready ? word & 0x7ffu : ALL);
+    } else {
+      ready = pending && w == gap;
+    }
+    const int sel = int(m & 31u);
+    const int cyc = int(unsigned(cycle) + gap);
+    issued = lane == sel;
+    const int t_ready = wadd(cyc, lat0), in_order = wadd(cyc, 1);
+    ready_votes = __ballot_sync(ALL, ready);
+    mem_votes = __ballot_sync(ALL, ready && blocked_mem);
+    earliest = issued ? max(in_order, t_ready) : earliest;
+    blocked_mem = issued ? mem0 && t_ready >= in_order : blocked_mem;
+    idx += issued;
+    last_gap = gap;
+    last = sel;
+    cycle = wadd(cyc, 1);
+  };
+  // slots [s0, s0 + k) are settled: store them, coalesced
+  auto flush = [&](int s0, int k) {
+    __syncwarp();
+    if (lane < k) {
+      ow[s0 + lane] = buf_w;
+      opc[s0 + lane] = st_pc[lane];
+      om[s0 + lane] = st_mask[lane];
+    }
+    __syncwarp();
+  };
 
   int s = 0;
-  for (; s < cap && issued < total; ++s) {
-    const bool pending = idx < tn;
-    const int earliest = pending ? max(in_order, t_ready) : BIG;
-    const int next_t = __reduce_min_sync(ALL, earliest);
-    const bool stalled = next_t > cycle;
-    const bool blocked_mem = t_mem && t_ready >= in_order;
-    const bool gap_mem = __any_sync(ALL, pending && earliest <= next_t && blocked_mem);
-    const int gap = stalled ? wsub(next_t, cycle) : 0;
-    if (gap_mem) mstall = wadd(mstall, gap);
-    else sstall = wadd(sstall, gap);
-    cycle = max(cycle, next_t);
-    if (stalled) last = -1;
-    const bool ready = pending && earliest <= cycle;
-    const unsigned key = policy == GTO ? (lane == last ? 0u : unsigned(lane) + 1u)
-                       : policy == RR ? unsigned(floor_mod(lane - cursor, N))
-                       : unsigned(lane);
-    const unsigned packed = ready ? (key << 5) | lane : 0xffffffe0u | lane;
-    const int sel = int(__reduce_min_sync(ALL, packed) & 31u);
-    const int n_ready = __popc(__ballot_sync(ALL, ready));
-    const int pc = __shfl_sync(ALL, pick8(rpc, idx & 7), sel);
-    const int mask = __shfl_sync(ALL, pick8(rmask, idx & 7), sel);
-    int op = NOP;
-    if (lane == sel && pc >= 0 && pc < L) op = __ldg(ops + pc);
-    op = min(max(__shfl_sync(ALL, op, sel), 0), N_OPS - 1);
-    const int lat = __shfl_sync(ALL, lat_l, op);
-    if (lane == sel) {
-      t_ready = wadd(cycle, lat);
-      t_mem = (p.is_mem >> op) & 1u;
-      in_order = wadd(cycle, 1);
-      idx += 1;
-      if ((idx & 3) == 0) refill(idx + 4);
-    }
-    tinstr = wadd(tinstr, __popc(unsigned(mask)));
-    busy += 1;
-    if (n_ready > 1) istall += 1;
-    if (policy == GTO) last = sel;
-    if (policy == RR) cursor = (sel + 1) % N;
-    if ((s & 31) == lane) { buf_w = sel; buf_pc = pc; buf_mask = mask; }
-    if ((s & 31) == 31) {
-      ow[s - 31 + lane] = buf_w; opc[s - 31 + lane] = buf_pc;
-      om[s - 31 + lane] = buf_mask;
-    }
-    cycle = wadd(cycle, 1);
-    issued += 1;
+  for (; s + BLOCK <= n; s += BLOCK) {  // blocks of BLOCK slots, no branch
+#pragma unroll
+    for (int j = 0; j < BLOCK; ++j) slot(j > 0, s + j - 1);
+    settle(s + BLOCK - 1);
+    flush(s, BLOCK);
+    cp_async_wait<0>();                 // the last top-up's copies are here
+    top_up(idx + AHEAD);
   }
-  // the buffered tail, then (-1, -1, 0) to cap
-  const int tail = s & 31;
-  if (lane < tail) {
-    ow[s - tail + lane] = buf_w; opc[s - tail + lane] = buf_pc;
-    om[s - tail + lane] = buf_mask;
+  for (int j = 0; s + j < n; ++j) slot(j > 0, s + j - 1);   // the rest
+  if (s < n) {
+    settle(n - 1);
+    flush(s, n - s);
   }
-  for (int i = s + lane; i < cap; i += 32) { ow[i] = -1; opc[i] = -1; om[i] = 0; }
+  // (-1, -1, 0) to cap
+  for (int i = n + lane; i < cap; i += 32) {
+    ow[i] = -1; opc[i] = -1; om[i] = 0;
+  }
+  cp_async_wait<0>();                   // no copy outlives the CTA
+  tinstr = int(__reduce_add_sync(ALL, unsigned(tinstr)));
   if (lane == 0)
-    store_counters(p, c, issued, cycle, busy, istall, sstall, mstall, tinstr);
+    store_counters(p, c, n, cycle, n, istall, sstall, mstall, tinstr);
 }
 
 // ---------------------------------------------------------------------------
@@ -374,6 +553,45 @@ __global__ void slot_chain_kernel(int links, unsigned step,
   }
 }
 
+// The narrow layout's own link, for comparison with K2's time: the same
+// dependent chain as sched_warp_kernel's slot (every lane's packed word
+// from its earliest time, the greedy-then-oldest key, one minimum, the
+// decode, the issued lane's update with its latency) without the trace
+// ring, the staging, the counters or the saturated path.  Lane l's
+// latency is 1 + l % 4, so lane 0 issues runs as GTO does.
+__global__ void slot_link_kernel(int links, long long* cycles) {
+  const int lane = threadIdx.x & 31;
+  const int lat = 1 + (lane & 3);
+  int earliest = 0, cycle = 0, last = 0;
+  __syncwarp();
+  const long long t0 = clock64();
+  for (int i = 0; i < links; ++i) {
+    const unsigned wait = earliest > cycle
+        ? unsigned(earliest) - unsigned(cycle) : 0u;
+    const unsigned key = lane == last && wait == 0u ? 0u : unsigned(lane) + 1u;
+    const unsigned m = __reduce_min_sync(
+        ALL, (min(wait, SAT) << 11) | (key << 5) | unsigned(lane));
+    const int sel = int(m & 31u);
+    const int cyc = int(unsigned(cycle) + (m >> 11));
+    if (lane == sel) earliest = max(wadd(cyc, 1), wadd(cyc, lat));
+    last = sel;
+    cycle = wadd(cyc, 1);
+  }
+  const long long t1 = clock64();
+  if (lane == 0) {
+    cycles[0] = t1 - t0;
+    cycles[1] = cycle;                 // keeps the chain live
+  }
+}
+
+// the narrow layout's build for a policy
+template <bool EXACT, bool STAGED>
+void (*pick(int policy))(SchedParams, int) {
+  return policy == GTO ? sched_warp_kernel<GTO, EXACT, STAGED>
+       : policy == RR ? sched_warp_kernel<RR, EXACT, STAGED>
+                      : sched_warp_kernel<OLDEST, EXACT, STAGED>;
+}
+
 }  // namespace
 
 extern "C" {
@@ -389,7 +607,48 @@ int sm_schedule(const SchedParams* params, void* stream) {
     return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p.N <= 32) {
-    sched_warp_kernel<<<(p.C + CELLS - 1) / CELLS, CELLS * 32, 0, s>>>(p);
+    const int code = align16(p.N * p.L);
+    // the cells spread over every SM: ceil(C / SMs) a CTA, at most MAX_CELLS;
+    // when there are no more CTAs than SMs, each asks for more than half an
+    // SM's shared memory, so that no two share one (two long cells on one
+    // SM sub-partition would slow each other's slots)
+    int dev = 0, sms = 0, sm_bytes = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(
+          &sm_bytes, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    if (e != cudaSuccess) return int(e);
+    const int cells = int(min((long long)MAX_CELLS,
+                              max(1LL, ((long long)p.C + sms - 1) / sms)));
+    const int grid = (p.C + cells - 1) / cells;
+    const bool staged =
+        LAT_BYTES + (long long)cells * (WARP_BYTES + code) <= SMEM_LIMIT;
+    const int vec = p.T % 4 == 0 &&
+        reinterpret_cast<uintptr_t>(p.trace_pc) % 16 == 0 &&
+        reinterpret_cast<uintptr_t>(p.trace_mask) % 16 == 0;
+    // every wait stays below the packed word's SAT, and no time wraps,
+    // when the cycle after cap slots of the longest gaps stays below 2^31
+    long long lmax = 1;
+    for (int i = 0; i < 32; ++i) lmax = lmax > p.lat[i] ? lmax : p.lat[i];
+    const bool exact = lmax >= SAT ||
+        (long long)p.cap * (lmax + 1) + lmax >= (long long)BIG;
+    int bytes = LAT_BYTES + cells * (WARP_BYTES + (staged ? code : 0));
+    if (grid <= sms) bytes = max(bytes, sm_bytes / 2 + 1024);
+    using Kernel = void (*)(SchedParams, int);
+    Kernel kernel;
+    if (exact)
+      kernel = staged ? pick<true, true>(p.policy) : pick<true, false>(p.policy);
+    else
+      kernel = staged ? pick<false, true>(p.policy)
+                      : pick<false, false>(p.policy);
+    if (bytes > 48 * 1024) {
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (e != cudaSuccess) return int(e);
+    }
+    kernel<<<grid, cells * 32, bytes, s>>>(p, vec);
   } else {
     const int threads = min(WIDE_THREADS, (p.N + 31) / 32 * 32);
     sched_cta_kernel<<<p.C, threads, 0, s>>>(p);
@@ -397,12 +656,15 @@ int sm_schedule(const SchedParams* params, void* stream) {
   return int(cudaGetLastError());
 }
 
-// One warp through slot_chain_kernel: cycles[0] gets the clock cycles of
-// `links` links, cycles[1] the last key.  Returns cudaGetLastError().
-int sm_slot_chain(int links, long long* cycles, void* stream) {
-  if (links < 1 || !cycles) return int(cudaErrorInvalidValue);
-  slot_chain_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      links, 32u, cycles);
+// One warp through slot_chain_kernel (link 0) or slot_link_kernel (link
+// 1): cycles[0] gets the clock cycles of `links` links, cycles[1] the last
+// key or cycle.  Returns cudaGetLastError().
+int sm_slot_chain(int links, int link, long long* cycles, void* stream) {
+  if (links < 1 || !cycles || link < 0 || link > 1)
+    return int(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (link == 0) slot_chain_kernel<<<1, 32, 0, s>>>(links, 32u, cycles);
+  else slot_link_kernel<<<1, 32, 0, s>>>(links, cycles);
   return int(cudaGetLastError());
 }
 

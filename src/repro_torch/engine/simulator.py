@@ -10,10 +10,15 @@ static verification and annotation synthesis (``verify=``, ``synthesize=``:
 ``Simulator.run`` executes one request, ``run_batch`` many (one launch of
 kernel K1 a batch on ``hanoi_torch``; sequential — or opt-in
 thread-pooled — on the numpy engines), ``run_sm`` one SM of warps (through
-``sm_interleave``, or ``sm_torch``: one launch of K1 and one of K2), and
+``sm_torch``: one launch of K1 and one of K2, or ``sm_interleave``), and
 ``compare`` runs the same programs under several mechanisms and reports
 per-pair trace discrepancy and IPC deltas — the paper's Fig 9 / Fig 10
 evaluation as a one-call API.
+
+Like every entry point of the port, the Simulator runs on the card unless
+it is asked for the CPU: its default mechanism is ``hanoi_torch`` and
+``run_sm``'s SM engine ``sm_torch``, and ``device="cpu"`` selects their
+plain twins.  The numpy mechanisms run on the host when asked for by name.
 """
 from __future__ import annotations
 
@@ -129,13 +134,21 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 class Simulator:
     """Façade over the mechanism registry.
 
-    >>> sim = Simulator("hanoi")
+    >>> sim = Simulator(device="cpu")
     >>> res = sim.run(program, cfg=MachineConfig(n_threads=8))
     >>> res.status
     <SimStatus.OK: 'ok'>
 
-    A default mechanism is chosen at construction; ``run``/``run_batch``
-    accept ``mechanism=`` overrides, and ``compare`` takes an explicit list.
+    A default mechanism is chosen at construction (``hanoi_torch``: kernel
+    K1 on the card); ``run``/``run_batch`` accept ``mechanism=`` overrides,
+    and ``compare`` takes an explicit list.
+
+    ``device`` is where the torch mechanisms (``hanoi_torch``, ``sm_torch``)
+    run: None means the card, resolved by :func:`repro_torch.device.resolve`
+    when a run starts, which raises where there is none; ``"cpu"`` runs
+    their plain twins.  It goes into each request's ``meta["device"]``
+    unless the request names its own, so ``meta={"device": "cpu"}`` on a
+    request does the same.
 
     ``max_workers`` opts numpy-mechanism batches into a thread pool.  The
     default (None) runs them sequentially: the reference interpreters are
@@ -146,16 +159,27 @@ class Simulator:
     raise unless unset: trace sinks and the static verifier are not ported.
     """
 
-    def __init__(self, mechanism: str = "hanoi", *, sink=None,
-                 max_workers: int | None = None,
+    def __init__(self, mechanism: str = "hanoi_torch", *, device=None,
+                 sink=None, max_workers: int | None = None,
                  verify: "bool | str" = False) -> None:
         self._default = get_mechanism(mechanism).name   # validate eagerly
+        self._device = None if device is None else str(device)
         self._max_workers = max_workers
         self._check_unported(sink, verify, False)
 
     @property
     def mechanism(self) -> str:
         return self._default
+
+    def _request(self, program: ProgramLike, cfg: MachineConfig | None,
+                 **request_kw) -> SimRequest:
+        """``as_request``, with this Simulator's device in ``meta`` unless
+        the request names its own."""
+        req = as_request(program, cfg, **request_kw)
+        if self._device is None or "device" in req.meta:
+            return req
+        return dataclasses.replace(req, meta={**req.meta,
+                                              "device": self._device})
 
     @staticmethod
     def _check_unported(sink, verify, synthesize) -> None:
@@ -175,7 +199,7 @@ class Simulator:
             **request_kw) -> SimResult:
         self._check_unported(sink, verify, synthesize)
         mech = get_mechanism(mechanism or self._default)
-        return mech(as_request(program, cfg, **request_kw))
+        return mech(self._request(program, cfg, **request_kw))
 
     # -- batched run --------------------------------------------------------
 
@@ -196,7 +220,7 @@ class Simulator:
         """
         self._check_unported(sink, verify, synthesize)
         mech = get_mechanism(mechanism or self._default)
-        reqs = [as_request(p, cfg, **request_kw) for p in programs]
+        reqs = [self._request(p, cfg, **request_kw) for p in programs]
         if not reqs:
             return []
         from repro_torch.service.planner import execute_plan  # lazy: no
@@ -211,7 +235,7 @@ class Simulator:
                inner: str | None = None,
                policy: str = "round_robin",
                timing_cfg: "TimingConfig | object" = TimingConfig(),
-               sm_mechanism: str = "sm_interleave",
+               sm_mechanism: str | None = None,
                sink=None,
                **request_kw) -> SmResult:
         """Run N warps on one SM through a single-warp mechanism.
@@ -221,7 +245,8 @@ class Simulator:
         (heterogeneous SMs — different programs and/or memory images; any
         sized sequence works, including a 3-D ndarray of stacked programs).
         Each warp executes under ``inner`` (default: this Simulator's
-        mechanism, or ``hanoi`` if that is a composite SM mechanism), then
+        mechanism, or ``hanoi_torch`` if that is a composite SM mechanism),
+        then
         the per-warp traces are time-multiplexed through the SM issue
         scheduler under ``policy`` (``round_robin`` /
         ``greedy_then_oldest`` / ``oldest_first``).  The returned
@@ -229,43 +254,43 @@ class Simulator:
         ``SimResult``s (and their ``SimRequest``s) plus the interleaved
         ``(warp, pc, mask)`` SM trace and its latency-aware cycle count.
 
-        ``sm_mechanism`` selects the SM engine: ``"sm_interleave"``
-        (default — Python scheduler, any single-warp ``inner``) or
-        ``"sm_torch"`` (the whole cell in one launch of K1 and one of K2
-        on the card, or their plain twins for ``meta={"device": "cpu"}``;
-        bit-identical traces, ``inner`` limited to the hanoi engines).  A
-        ``sink`` is not ported yet (ROADMAP.md item 13) and raises.
-
-        The defaults are the reference's, so by default the cell runs on
-        the host (``sm_interleave`` over the Simulator's default inner,
-        the numpy ``hanoi``): an exception to the port's rule that entry
-        points take the card, kept for parity with ``repro``'s API
-        (ROADMAP.md, rules of the port).  The card is asked for by name:
-        ``sm_mechanism="sm_torch"``, or ``inner="hanoi_torch"``.
+        ``sm_mechanism`` selects the SM engine: ``"sm_torch"`` (the whole
+        cell in one launch of K1 and one of K2 on the Simulator's device,
+        the card unless it is ``"cpu"``, where their plain twins run;
+        ``inner`` limited to the hanoi engines) or ``"sm_interleave"``
+        (Python scheduler, any single-warp ``inner``); the two give
+        bit-identical results.  The default, None, is ``sm_torch`` for a
+        hanoi ``inner`` (``hanoi``, ``hanoi_torch``) and ``sm_interleave``
+        for any other.  A ``sink`` is not ported yet (ROADMAP.md item 13)
+        and raises.
         """
         from .mechanisms.sm import build_sm_result, per_warp_programs
         if sm_mechanism == "sm_jax":
             raise ValueError("sm_mechanism 'sm_jax' is the JAX package's; "
                              "the port's lane-parallel SM engine is "
                              "'sm_torch'")
-        if sm_mechanism not in ("sm_interleave", "sm_torch"):
+        if sm_mechanism not in (None, "sm_interleave", "sm_torch"):
             raise ValueError(f"sm_mechanism must be 'sm_interleave' or "
                              f"'sm_torch', got {sm_mechanism!r}")
         self._check_unported(sink, False, False)
         if inner is None:
             inner_name = self._default
             if "composite" in get_mechanism(inner_name).tags:
-                inner_name = "hanoi"     # default fallback only:
-        else:                            # nesting is an error below
+                inner_name = "hanoi_torch"   # default fallback only:
+        else:                                # nesting is an error below
             inner_mech = get_mechanism(inner)
             inner_name = inner_mech.name
             if "composite" in inner_mech.tags:
                 raise ValueError("inner must be a single-warp mechanism, "
                                  f"not the composite {inner_name!r}")
+        if sm_mechanism is None:
+            from .mechanisms.sm_torch import _SUPPORTED_INNER
+            sm_mechanism = ("sm_torch" if inner_name in _SUPPORTED_INNER
+                            else "sm_interleave")
         per_warp = per_warp_programs(programs, n_warps)
         if not per_warp:
             raise ValueError("run_sm needs at least one warp")
-        reqs = [as_request(p, cfg, **request_kw) for p in per_warp]
+        reqs = [self._request(p, cfg, **request_kw) for p in per_warp]
         if sm_mechanism == "sm_torch":
             from .mechanisms.sm_torch import run_cells
             return run_cells([reqs], policy=policy, timing_cfg=timing_cfg,
@@ -340,7 +365,7 @@ class Simulator:
                 cfg = MachineConfig(n_threads=32, mem_size=256,
                                     max_steps=60_000)   # 4096-fuel default
             programs = make_suite(cfg)
-        reqs = [as_request(p, cfg, **request_kw) for p in programs]
+        reqs = [self._request(p, cfg, **request_kw) for p in programs]
         # unique program ids (anonymous ndarrays would otherwise collide)
         pids: list[str] = []
         for i, req in enumerate(reqs):

@@ -244,21 +244,25 @@ def sm_schedule_cuda(warp_map, trace_n, ops, trace_pc, trace_mask,
     return Schedule(outs[0], outs[1], outs[2], *counters)
 
 
-def slot_chain_cycles(device, links: int = 1 << 16) -> float:
+def slot_chain_cycles(device, links: int = 1 << 16, *,
+                      narrow_link: bool = False) -> float:
     """Clock cycles a link of the scheduling function's shortest dependent
     chain takes on the card: one warp-wide minimum and the issued warp's
     update (``slot_chain_kernel`` in ``csrc/sm_sched.cu`` says why one
-    minimum is enough for cells of up to 32 warps).  The mean over
-    ``links`` links of one warp, after a first run that loads the kernel.
-    A measurement of the card for K2's bound; the scheduler does not use
+    minimum is enough for cells of up to 32 warps); with ``narrow_link``,
+    the chain of K2's narrow slot as it is built (``slot_link_kernel``:
+    the packed words, the minimum, the decode and the update, without the
+    slot's memory traffic and counters).  The mean over ``links`` links of
+    one warp, after a first run that loads the kernel.  A measurement of
+    the card for K2's bound and its losses; the scheduler does not use
     it."""
     out = torch.zeros(2, dtype=torch.int64, device=device)
     lib = _build.load("sm_sched")
     stream = ctypes.c_void_p(torch.cuda.current_stream(out.device)
                              .cuda_stream)
     for _ in range(2):
-        err = lib.sm_slot_chain(links, ctypes.c_void_p(out.data_ptr()),
-                                stream)
+        err = lib.sm_slot_chain(links, int(narrow_link),
+                                ctypes.c_void_p(out.data_ptr()), stream)
         if err:
             raise RuntimeError(f"slot_chain kernel launch failed: "
                                f"{_build.cuda_error_string(lib, err)}")
@@ -268,8 +272,8 @@ def slot_chain_cycles(device, links: int = 1 << 16) -> float:
 def _argtypes(lib):
     lib.sm_schedule.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
     lib.sm_schedule.restype = ctypes.c_int
-    lib.sm_slot_chain.argtypes = [ctypes.c_int, ctypes.c_void_p,
-                                  ctypes.c_void_p]
+    lib.sm_slot_chain.argtypes = [ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_void_p, ctypes.c_void_p]
     lib.sm_slot_chain.restype = ctypes.c_int
 
 

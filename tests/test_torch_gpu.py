@@ -550,7 +550,7 @@ def test_hanoi_torch_on_card_matches_numpy(cuda):
     before = ops.hanoi_run.launches
     got = Simulator().run_batch(suite, cfg, mechanism="hanoi_torch")
     assert ops.hanoi_run.launches == before + len(groups)
-    want = Simulator().run_batch(suite, cfg, mechanism="hanoi")
+    want = Simulator("hanoi").run_batch(suite, cfg)
     for a, b in zip(got, want):
         assert (a.status, a.trace, a.steps, a.fuel_left, a.finished,
                 a.utilization, a.error) == (b.status, b.trace, b.steps,
@@ -728,6 +728,48 @@ def test_hanoi_kernel_matches_plain_at_layout_boundaries(cuda, name):
     assert int(st.steps.max()) > 0
 
 
+def _trace_of_length(t):
+    """A program whose trace is ``t`` entries long when its fuel lasts: a
+    straight line to EXIT, or a counted loop (MOV, then IADDI / ISETP /
+    BRA n times, EXIT) after 0 to 2 NOPs."""
+    from repro_torch.core.asm import assemble
+    if t < 5:
+        return assemble("NOP\n" * (t - 1) + "EXIT")
+    n, k = divmod(t - 2, 3)
+    return assemble("NOP\n" * k + f"MOV R2, {n}\nloop:\nIADDI R2, R2, -1\n"
+                    "ISETP.GT P0, R2, 0\n@P0 BRA loop\nEXIT")
+
+
+@pytest.mark.parametrize("name", _K1_LAYOUT_CASES)
+def test_hanoi_kernel_fill_matches_plain(cuda, name):
+    """K1's trace fill against its twin at each layout: traces of T, T - 1
+    and T - 2 entries (no fill, one word, two), of T - 300 (at T 1001 a
+    fill shorter than one bulk tile) and of 1 (the shortest a warp writes:
+    its first slot always records an entry), at Ts not divisible by 4, so
+    that each warp's row starts at another offset from a 16-byte boundary,
+    and at one that is.  At T 3001 the rows are filled during the run from
+    their end down, and the longer traces then grow into the filled range;
+    two launches alike."""
+    from repro_torch.core.isa import Op
+    _, cfg, L = next(c for c in _k1_layout_boundaries() if c[0] == name)
+    for T in (1001, 1024, 3001):
+        tcfg = cfg._replace(max_steps=T)
+        targets = (T, T - 1, T - 2, T - 300, 1, 7, T - 3)
+        cases = {f"trace_{t}": (_trace_of_length(t), None, None, ())
+                 for t in targets}
+        names, ops_in = _hanoi_operands(cases, tcfg, cuda)
+        progs = torch.zeros((len(names), L, 8), dtype=torch.int32,
+                            device=cuda)
+        progs[:, :, 0] = int(Op.EXIT)
+        progs[:, :ops_in[0].shape[1]] = ops_in[0]
+        ops_in[0] = progs
+        ops_in[1] = torch.zeros((len(names), L), dtype=torch.bool,
+                                device=cuda)
+        st = _k1_and_twin(names, ops_in, tcfg)
+        assert st.trace_n.tolist() == list(targets)
+        _assert_states_equal(st, ops.hanoi_run(*ops_in, tcfg), names)
+
+
 # ---------------------------------------------------------------------------
 # K2, the SM issue scheduler
 # ---------------------------------------------------------------------------
@@ -799,6 +841,72 @@ def test_sm_sched_kernel_matches_plain(cuda, N, policy):
             assert int(s.mstall.sum()) > 0
 
 
+def _k2_redesign_case(case, N, device):
+    """A one-cell K2 grid of ``N`` warps on ``device`` that stresses the narrow layout's
+    redesign, as ``(args, lat, is_mem, out_cap)``: every trace entry's pc is
+    its own (so a wrong ring entry shows) and its mask is random.
+
+    - ``long_run``: warp 0's trace is 300 entries of single-cycle opcodes,
+      so under GTO it issues them in one run and its ring refills at every
+      position; the others are short;
+    - ``all_gaps``: every latency is 3, the cell's warps issue 1 entry
+      each, then warp 0 alone: every slot after the first round is a gap;
+    - ``ring_lengths``: traces of 1 entry, of exactly the ring's 64, of
+      a top-up's reach (40) and of one block of slots (16);
+    - ``cycle_wraps``: latencies of 2^30, so the cycle passes 2^31 and
+      wraps, and the waits exceed the packed word;
+    - ``wide_waits``: latencies of 3 and of 2^22 (past the packed word's
+      2^21 - 1) in one cell."""
+    from repro_torch.kernels.sm_sched import N_OPS
+    rng = np.random.default_rng(N * 100 + len(case))
+    T = 301                               # not a multiple of 4
+    L = T
+    ops_col = rng.integers(0, N_OPS, (N, L)).astype(np.int32)
+    trace_pc = np.tile(np.arange(T, dtype=np.int32), (N, 1))
+    trace_mask = rng.integers(0, 1 << 32, (N, T), dtype=np.uint64) \
+        .astype(np.uint32).view(np.int32)
+    trace_n = np.full(N, 12, np.int32)
+    lat = np.full(N_OPS, 2, np.int32)
+    is_mem = np.zeros(N_OPS, bool)
+    if case == "long_run":
+        ops_col[:] = 0                    # NOP: control latency 1
+        lat[0] = 1
+        trace_n[0] = 300
+    elif case == "all_gaps":
+        lat[:] = 3
+        trace_n[:] = 1
+        trace_n[0] = 120
+    elif case == "ring_lengths":
+        trace_n[:] = np.resize([1, 64, 40, 16], N)
+    elif case == "cycle_wraps":
+        lat[:] = 1 << 30
+        is_mem[::2] = True
+        trace_n[:] = 9
+    elif case == "wide_waits":
+        lat[::3] = 1 << 22
+        is_mem[::3] = True
+        lat[1::3] = 3
+    warp_map = np.arange(N, dtype=np.int32)[None]
+    args = [torch.from_numpy(a).to(device) for a in
+            (warp_map, trace_n[None], ops_col, trace_pc, trace_mask)]
+    out_cap = -(-int(trace_n.sum()) // 32) * 32
+    return args, lat, is_mem, out_cap
+
+
+@pytest.mark.parametrize("N", [1, 7, 32])
+@pytest.mark.parametrize("case", ["long_run", "all_gaps", "ring_lengths",
+                                  "cycle_wraps", "wide_waits"])
+def test_sm_sched_narrow_layout_redesign(cuda, case, N):
+    """The narrow layout against its twin, every output bit for bit and two
+    launches alike, on the shapes its design puts at risk, every policy."""
+    args, lat, is_mem, out_cap = _k2_redesign_case(case, N, cuda)
+    for policy in ("greedy_then_oldest", "round_robin", "oldest_first"):
+        s = _k2_and_twin(args, lat, is_mem, out_cap=out_cap, policy=policy)
+        assert int(s.issued[0]) == int(args[1].sum())
+    if case == "all_gaps" and N == 1:
+        assert int(s.sstall[0]) == 2 * (120 - 1)
+
+
 def test_sm_sched_kernel_on_k1_traces(cuda):
     """K2 reads K1's trace buffers in place: the suite at 8 threads, cells
     of 1, 8, 32 and 64 warps drawn from its rows, every policy."""
@@ -867,7 +975,7 @@ def test_sm_torch_on_card_matches_cpu(cuda):
                                                 sb.thread_instructions)
         longest = max(got, key=lambda r: r.steps).meta["sm"]
         ref = sim.run_sm(list(longest.requests), policy=policy,
-                         inner="hanoi_torch")
+                         inner="hanoi_torch", sm_mechanism="sm_interleave")
         assert ref.mechanism == "sm_interleave"
         assert (longest.sm_trace, longest.cycles, longest.stall_breakdown) \
             == (ref.sm_trace, ref.cycles, ref.stall_breakdown)

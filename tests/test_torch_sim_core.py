@@ -258,7 +258,7 @@ def test_result_assembly_copies_only_the_traces(monkeypatch):
     monkeypatch.undo()
     assert sum(copied) < 2_000
     for r, p in zip(res, progs):
-        assert r.trace == Simulator().run(p, cfg).trace
+        assert r.trace == Simulator("hanoi").run(p, cfg).trace
 
 
 def test_hanoi_torch_needs_a_card_unless_asked_for_the_cpu():
@@ -274,6 +274,41 @@ def test_hanoi_torch_needs_a_card_unless_asked_for_the_cpu():
             SimRequest(program=tprograms.fig5_program(), cfg=CFG4, meta=CPU)]
     groups = plan_dispatch(mech, reqs)
     assert [g.indices for g in groups] == [(0,), (1,)]   # never one batch
+
+
+@pytest.mark.parametrize("W", [4, 32])
+def test_default_simulator_on_the_cpu_equals_reference(W):
+    """``Simulator(device="cpu")`` with its default mechanism
+    (``hanoi_torch``, the plain twin here) gives the reference
+    ``Simulator()``'s results (the numpy ``hanoi``) on the suite, bit for
+    bit: trace, registers, predicates, memory, steps and fuel."""
+    cfg = tisa.MachineConfig(n_threads=W)
+    jcfg = jisa.MachineConfig(n_threads=W)
+    sim = Simulator(device="cpu")
+    assert sim.mechanism == "hanoi_torch"
+    mine = sim.run_batch(tprograms.make_suite(cfg), cfg)
+    ref = JSimulator().run_batch(jprograms.make_suite(jcfg), jcfg)
+    assert len(mine) == len(ref) == 23
+    for a, b in zip(mine, ref):
+        assert a.mechanism == "hanoi_torch"
+        assert_results_equal(a, b)
+    one = sim.run(tprograms.fig6_program(), cfg)
+    assert_results_equal(one, JSimulator().run(jprograms.fig6_program(),
+                                               jcfg))
+
+
+def test_entry_points_need_a_card_unless_given_the_cpu():
+    """Without a card, ``Simulator()``'s run, run_batch and run_sm raise
+    and name the ``device`` argument; they never run on the host."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible")
+    prog = tprograms.fig5_program()
+    sim = Simulator()
+    for call in (lambda: sim.run(prog, CFG4),
+                 lambda: sim.run_batch([prog, prog], CFG4),
+                 lambda: sim.run_sm(prog, CFG4, n_warps=8)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 def test_unported_paths_raise_naming_the_roadmap():

@@ -126,7 +126,8 @@ def test_sm_torch_matches_sm_jax_and_interleave(policy, width):
         for g, w, cell in zip(got, want, mine):
             assert g.mechanism == "sm_torch" and g.inner == "hanoi_torch"
             assert_sm_equal(g, w)
-            p = SIM.run_sm(list(cell), policy=policy)
+            p = SIM.run_sm(list(cell), policy=policy,
+                           sm_mechanism="sm_interleave")
             assert p.mechanism == "sm_interleave"
             assert_sm_equal(g, p)
 
@@ -140,7 +141,8 @@ def test_sm_torch_heterogeneous_cells_and_ndarray_stack():
     for policy in POLICIES:
         j = SIM.run_sm(progs, CFG, inner="hanoi_torch", policy=policy,
                        sm_mechanism="sm_torch", meta=CPU)
-        p = SIM.run_sm(progs, CFG, inner="hanoi", policy=policy)
+        p = SIM.run_sm(progs, CFG, inner="hanoi", policy=policy,
+                       sm_mechanism="sm_interleave")
         r = JSIM.run_sm(jprogs, JCFG, inner="hanoi", policy=policy,
                         sm_mechanism="sm_jax")
         assert j.n_warps == 3 and len(j.requests) == 3
@@ -150,12 +152,14 @@ def test_sm_torch_heterogeneous_cells_and_ndarray_stack():
     for policy in POLICIES:
         j = SIM.run_sm(mixed, CFG, policy=policy, sm_mechanism="sm_torch",
                        meta=CPU)
-        assert_sm_equal(j, SIM.run_sm(mixed, CFG, policy=policy))
+        assert_sm_equal(j, SIM.run_sm(mixed, CFG, policy=policy,
+                                      sm_mechanism="sm_interleave"))
     stack = np.stack([BENCH["DIAMOND"].program] * 3)
     j = SIM.run_sm(stack, CFG, policy="round_robin", sm_mechanism="sm_torch",
                    meta=CPU)
     assert j.n_warps == 3
-    assert_sm_equal(j, SIM.run_sm(stack, CFG, policy="round_robin"))
+    assert_sm_equal(j, SIM.run_sm(stack, CFG, policy="round_robin",
+                                  sm_mechanism="sm_interleave"))
 
 
 def test_run_batch_sm_torch_matches_sm_jax():
@@ -197,7 +201,8 @@ def test_non_default_latencies_and_no_trace():
                        timing_cfg=tcfg, sm_mechanism="sm_torch", meta=CPU)
         assert_sm_equal(j, SIM.run_sm(b, CFG, n_warps=5,
                                       policy="greedy_then_oldest",
-                                      timing_cfg=tcfg))
+                                      timing_cfg=tcfg,
+                                      sm_mechanism="sm_interleave"))
     quiet = [[SimRequest(program=b.program, cfg=CFG, init_mem=b.init_mem,
                          record_trace=False, meta=CPU)] * 2]
     (sm,) = sm_torch.run_cells(quiet)
@@ -209,6 +214,38 @@ def test_sm_torch_needs_a_card_unless_asked_for_the_cpu():
         pytest.skip("a card is visible")
     with pytest.raises(RuntimeError, match="no.*visible"):
         SIM.run_sm(BENCH["DIAMOND"], CFG, sm_mechanism="sm_torch")
+
+
+@pytest.mark.parametrize("name", BENCHES)
+def test_run_sm_defaults_on_the_cpu_equal_sm_jax_and_interleave(name):
+    """``Simulator(device="cpu").run_sm`` with its defaults (4 identical
+    warps, round robin, inner ``hanoi_torch``) is ``sm_torch`` on the
+    plain twins, and equals the reference's ``sm_jax`` and the port's
+    ``sm_interleave``."""
+    b, jb = BENCH[name], next(x for x in JSUITE if x.name == name)
+    got = Simulator(device="cpu").run_sm(b, CFG)
+    assert (got.mechanism, got.inner, got.n_warps) == ("sm_torch",
+                                                        "hanoi_torch", 4)
+    assert_sm_equal(got, JSIM.run_sm(jb, JCFG, inner="hanoi",
+                                     sm_mechanism="sm_jax"))
+    assert_sm_equal(got, Simulator(device="cpu").run_sm(
+        b, CFG, sm_mechanism="sm_interleave"))
+
+
+def test_run_sm_default_engine_follows_the_inner():
+    """``sm_mechanism=None`` is ``sm_torch`` over a hanoi inner and
+    ``sm_interleave`` over any other (``sm_torch`` takes only hanoi
+    inners); a composite default mechanism falls back to ``hanoi_torch``."""
+    b, jb = BENCH["DIAMOND"], next(x for x in JSUITE if x.name == "DIAMOND")
+    sim = Simulator(device="cpu")
+    for inner in ("simt_stack", "volta_itps"):
+        got = sim.run_sm(b, CFG, inner=inner, policy="greedy_then_oldest")
+        assert got.mechanism == "sm_interleave" and got.inner == inner
+        assert_sm_equal(got, JSIM.run_sm(jb, JCFG, inner=inner,
+                                         policy="greedy_then_oldest"))
+    assert sim.run_sm(b, CFG, inner="hanoi").mechanism == "sm_torch"
+    sm = Simulator("sm_torch", device="cpu").run_sm(b, CFG)
+    assert (sm.mechanism, sm.inner) == ("sm_torch", "hanoi_torch")
 
 
 # ---------------------------------------------------------------------------
@@ -385,12 +422,12 @@ def test_sm_interleave_equals_reference(policy):
     for prog, mem in progs:
         for n in (1, 3):
             got = SIM.run_sm(prog, CFG, n_warps=n, policy=policy,
-                             init_mem=mem)
+                             init_mem=mem, sm_mechanism="sm_interleave")
             want = JSIM.run_sm(prog, JCFG, n_warps=n, policy=policy,
                                init_mem=mem)
             assert_sm_equal(got, want)
     stuck = SIM.run_sm(tprograms.spinlock_no_yield_program(), CFG,
-                       n_warps=2, policy=policy)
+                       n_warps=2, policy=policy, sm_mechanism="sm_interleave")
     assert not stuck.ok and stuck.status is not SimStatus.OK
 
 
