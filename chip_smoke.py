@@ -59,9 +59,10 @@ device.  Any failed phase, or no GPU, exits non-zero before that last line.
 
 times only K1 at the simulator phase's shape (and at 4,096 slots of fuel,
 its stepping with a 16th of the fill) and K2 at the SM model's grids (a)
-and (b), with the package under ``DIR`` (default: this checkout's ``src``), and
-prints them as one JSON line: run it on two trees in one call, in turns, to
-compare them on one card.
+and (b), on the operands those phases build, with the package under
+``DIR`` (a directory inside this checkout; default: its ``src``), and
+prints them as one JSON line: unpack another tree inside the checkout and
+run both in one call, in turns, to compare them on one card.
 """
 from __future__ import annotations
 
@@ -199,48 +200,78 @@ def sim_requests(SimRequest, programs, sim_cfg, n):
             for w, b in ((w, suite[w % len(suite)]) for w in range(n))]
 
 
+def hanoi_operands(reqs, cfg, skip_pcs=None, dev="cuda"):
+    """K1's operands for a batch of warp requests, as ``run_batch`` packs
+    them, with the given BSYNC pcs of warp i as oracle skips: the padded
+    program length and the tensors on ``dev``."""
+    from repro_torch.engine.adapters import _batch_arrays, padded_len
+    L = padded_len(max(r.program.shape[0] for r in reqs))
+    arrays = _batch_arrays(reqs, cfg, L)
+    for i, pcs in enumerate(skip_pcs or ()):
+        arrays[1][i, list(pcs)] = True
+    return L, [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+def k1_times(ops, ins, cfg, short_cfg):
+    """K1's ms on the operands at ``cfg`` and at ``short_cfg``."""
+    return (cuda_time_ms(lambda: ops.hanoi_run(*ins, cfg), 5, warmup=1),
+            cuda_time_ms(lambda: ops.hanoi_run(*ins, short_cfg), 5,
+                         warmup=1))
+
+
+def grid_kernel_times(ops, sm_torch, grid):
+    """K1's and K2's ms on an SM grid's operands (K2 on K1's traces), and
+    K2's launch on them."""
+    k1_ms = cuda_time_ms(lambda: ops.hanoi_run(*grid.warp_operands,
+                                               grid.cfg), 5, warmup=1)
+    st = ops.hanoi_run(*grid.warp_operands, grid.cfg)
+    warp_map, trace_n, out_cap = sm_torch.schedule_operands(grid, st)
+    lat, is_mem = sm_torch._latency_tables(grid.ccfg)
+
+    def k2():
+        return ops.sm_schedule(warp_map, trace_n, grid.ops, st.trace_pc,
+                               st.trace_mask, lat, is_mem, out_cap=out_cap,
+                               policy=grid.policy)
+    return k1_ms, cuda_time_ms(k2, 5, warmup=1), k2
+
+
+def grid_b_cells(reqs):
+    """The SM model's grid (b): 264 cells of 32 warps, each warp its own
+    request of the simulator phase's batch."""
+    return [reqs[c * SM_WARPS_B:(c + 1) * SM_WARPS_B]
+            for c in range(SM_CELLS_B)]
+
+
 def k1k2_times(src: Path) -> int:
-    """K1's ms at the simulator phase's shape and K2's at grid (a), with
-    the package under ``src``; one JSON line."""
+    """K1's ms at the simulator phase's shape and K2's at grids (a) and
+    (b), with the package under ``src``; one JSON line."""
+    if ROOT not in (src, *src.parents):
+        print(f"chip_smoke: --src {src} is not inside {ROOT}",
+              file=sys.stderr)
+        return 2
     sys.path.insert(0, str(src))
     from repro_torch.core import programs
     from repro_torch.core.isa import MachineConfig
     from repro_torch.engine import SimRequest
-    from repro_torch.engine.adapters import _batch_arrays, padded_len
     from repro_torch.engine.mechanisms import sm_torch
     from repro_torch.kernels import ops
 
-    dev = torch.device("cuda")
     sim_cfg = MachineConfig(n_threads=32, mem_size=256, max_steps=60_000)
     reqs = sim_requests(SimRequest, programs, sim_cfg, SIM_WARPS)
-    L = padded_len(max(r.program.shape[0] for r in reqs))
-    ins = [torch.from_numpy(a).to(dev) for a in _batch_arrays(reqs, sim_cfg,
-                                                               L)]
-    k1_ms = cuda_time_ms(lambda: ops.hanoi_run(*ins, sim_cfg), 5, warmup=1)
-    # its stepping with a 16th of the fill: the same traces at 4,096 fuel
-    short_cfg = sim_cfg._replace(max_steps=4096)
-    k1_short_ms = cuda_time_ms(lambda: ops.hanoi_run(*ins, short_cfg), 5,
-                               warmup=1)
+    _, ins = hanoi_operands(reqs, sim_cfg)
+    k1_ms, k1_short_ms = k1_times(ops, ins, sim_cfg,
+                                  sim_cfg._replace(max_steps=4096))
     del ins
-
-    def k2_ms(cells, policy):
-        grid = sm_torch.grid_of(cells, policy=policy,
-                                inner_label="hanoi_torch")
-        st = ops.hanoi_run(*grid.warp_operands, grid.cfg)
-        warp_map, trace_n, out_cap = sm_torch.schedule_operands(grid, st)
-        lat, is_mem = sm_torch._latency_tables(grid.ccfg)
-        return cuda_time_ms(lambda: ops.sm_schedule(
-            warp_map, trace_n, grid.ops, st.trace_pc, st.trace_mask, lat,
-            is_mem, out_cap=out_cap, policy=grid.policy), 10)
-
-    # the SM model's grids (a) and (b), as its phase builds them
-    k2_a = k2_ms([[r] * SM_WARPS_A for r in reqs[:SM_CELLS_A]],
-                 "greedy_then_oldest")
-    k2_b = k2_ms([reqs[c * SM_WARPS_B:(c + 1) * SM_WARPS_B]
-                  for c in range(SM_CELLS_B)], "round_robin")
+    # grid (a) as run_batch forms it from 1,056 requests of 8 warps each
+    grids = {"a": ([[r] * SM_WARPS_A for r in reqs[:SM_CELLS_A]],
+                   "greedy_then_oldest"),
+             "b": (grid_b_cells(reqs), "round_robin")}
+    k2 = {g: grid_kernel_times(ops, sm_torch, sm_torch.grid_of(
+        cells, policy=policy, inner_label="hanoi_torch"))[1]
+        for g, (cells, policy) in grids.items()}
     print(json.dumps({"src": str(src), "k1_ms": k1_ms,
-                      "k1_ms_fuel_4096": k1_short_ms, "k2_ms": k2_a,
-                      "k2_ms_grid_b": k2_b}), flush=True)
+                      "k1_ms_fuel_4096": k1_short_ms, "k2_ms": k2["a"],
+                      "k2_ms_grid_b": k2["b"]}), flush=True)
     return 0
 
 
@@ -263,7 +294,7 @@ def main() -> int:
     from repro_torch.engine import SimRequest, Simulator, as_request
     from repro_torch.engine import get_mechanism
     from repro_torch.service.planner import plan_dispatch
-    from repro_torch.engine.adapters import _batch_arrays, padded_len
+    from repro_torch.engine.adapters import _batch_arrays
     from repro_torch.engine.mechanisms import sm_torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import hanoi_step as hs
@@ -477,13 +508,6 @@ def main() -> int:
     # of the state: the figures, the spinlock and the suite (also with every
     # BSYNC an oracle skip), at 4, 8 and 32 threads; 8 Bx registers with
     # majority-first, 2 without.  Two launches must give the same bits.
-    def hanoi_operands(reqs, cfg, skip_pcs=None):
-        L = padded_len(max(r.program.shape[0] for r in reqs))
-        arrays = _batch_arrays(reqs, cfg, L)
-        for i, pcs in enumerate(skip_pcs or ()):
-            arrays[1][i, list(pcs)] = True
-        return L, [torch.from_numpy(a).to(dev) for a in arrays]
-
     def state_diff(a, b):
         """The fields in which two states differ, and the largest
         difference there."""
@@ -860,7 +884,6 @@ def main() -> int:
               "the numpy run_hanoi")
     slots = (sim_cfg.max_steps - twin.fuel).long()
     numpy_slots = sum(sim_cfg.max_steps - ref.fuel_left for ref in refs)
-    k1_ms = cuda_time_ms(lambda: ops.hanoi_run(*ins, sim_cfg), 5, warmup=1)
     # the trace buffers' -1 / 0 fill alone, as PyTorch's fill kernels do it
     fill_ms = cuda_time_ms(lambda: (k1_state.trace_pc.fill_(-1),
                                     k1_state.trace_mask.fill_(0)), 5)
@@ -874,24 +897,8 @@ def main() -> int:
     check(torch.equal(short.trace_n, twin.trace_n)
           and torch.equal(short.trace_pc, twin.trace_pc[:, :4096]),
           "K1 at 4096 slots of fuel: traces differ from the full run's")
-    k1_short_ms = cuda_time_ms(lambda: ops.hanoi_run(*ins, short_cfg), 5,
-                               warmup=1)
     del short
-    # the default layout's builds: registers capped for more CTAs an SM;
-    # each held to the twin, then timed in turns
-    sweep_ms = {mb: [] for mb in hs.MIN_BLOCKS}
-    for mb in hs.MIN_BLOCKS:
-        bad, _ = state_diff(hs.hanoi_run_cuda(*ins, sim_cfg, min_blocks=mb),
-                            twin)
-        check(not bad, f"K1 min_blocks {mb}: {bad} differ from the twin")
-    for _ in range(2):
-        for mb in hs.MIN_BLOCKS:
-            sweep_ms[mb].append(cuda_time_ms(lambda: hs.hanoi_run_cuda(
-                *ins, sim_cfg, min_blocks=mb), 5, warmup=1))
-    phase("kernel_sweep", kernel="hanoi_step", over="min_blocks",
-          ms={mb: [f"{t:.4f}" for t in ts] for mb, ts in sweep_ms.items()},
-          ptxas={k: v for k, v in ptxas["hanoi_step"].items()
-                 if k.startswith("hanoi_kernel<4,0,0,")})
+    k1_ms, k1_short_ms = k1_times(ops, ins, sim_cfg, short_cfg)
     k1_bytes = hs.run_bytes(k1_state, L)
     t_bytes = k1_bytes / PEAK_BYTES_PER_S * 1e3
     t_slots = int(slots.max()) * SLOT_CYCLES / CLOCK_HZ * 1e3
@@ -907,7 +914,6 @@ def main() -> int:
         "k1_ms": k1_ms, "twin_s": twin_s, "trace_fill_ms": fill_ms,
         "trace_fill_bytes": fill_bytes, "k1_ms_fuel_4096": k1_short_ms,
         "trace_fill_share_of_k1_bytes": fill_bytes / k1_bytes,
-        "k1_ms_by_min_blocks": {mb: min(ts) for mb, ts in sweep_ms.items()},
         "numpy_run_hanoi_s": numpy_s,
         "numpy_host_slots_per_s": numpy_slots / numpy_s,
         "k1_bytes": k1_bytes, "bound_ms_bytes": t_bytes,
@@ -966,7 +972,7 @@ def main() -> int:
 
     def sm_twins(cells, policy):
         """The grid's SmResults from K1's and K2's plain twins on the card,
-        with the twins' seconds and K2's operands."""
+        with the twins' seconds and K2's trace lengths and slots."""
         grid = sm_torch.grid_of(cells, policy=policy,
                                 inner_label="hanoi_torch")
         torch.cuda.synchronize()
@@ -984,7 +990,7 @@ def main() -> int:
         torch.cuda.synchronize()
         k2_s = time.perf_counter() - t0
         return grid, sm_torch.assemble(grid, state, sched), (k1_s, k2_s), \
-            (warp_map, trace_n, out_cap, lat, is_mem)
+            (trace_n, out_cap)
 
     def sm_diff(a, b) -> list:
         """The fields in which two SmResults differ (every simulated
@@ -1031,8 +1037,8 @@ def main() -> int:
         """Hold a grid's SmResults to the twins' and its longest cell to
         sm_interleave, time K1 and K2 on its operands, print its numbers
         with ``runs``, sm_runs' numbers of the two runs."""
-        grid, twin_sms, (k1_twin_s, k2_twin_s), k2_ops = sm_twins(cells,
-                                                                   policy)
+        grid, twin_sms, (k1_twin_s, k2_twin_s), (trace_n, out_cap) = \
+            sm_twins(cells, policy)
         check(len(sms) == len(cells), f"{label}: lost cells")
         for c, (a, b) in enumerate(zip(sms, twin_sms)):
             bad = sm_diff(a, b)
@@ -1043,16 +1049,7 @@ def main() -> int:
         bad = sm_diff(sms[longest], ref)
         check(ref.mechanism == "sm_interleave" and not bad,
               f"{label} longest cell: {bad} differ from sm_interleave")
-        warp_map, trace_n, out_cap, lat, is_mem = k2_ops
-        k1_ms = cuda_time_ms(lambda: ops.hanoi_run(
-            *grid.warp_operands, grid.cfg), 5, warmup=1)
-        st = ops.hanoi_run(*grid.warp_operands, grid.cfg)
-
-        def k2():
-            return ops.sm_schedule(warp_map, trace_n, grid.ops, st.trace_pc,
-                                   st.trace_mask, lat, is_mem,
-                                   out_cap=out_cap, policy=grid.policy)
-        k2_ms = cuda_time_ms(k2, 5, warmup=1)
+        k1_ms, k2_ms, k2 = grid_kernel_times(ops, sm_torch, grid)
         slots = sum(sm.steps for sm in sms)
         exec_s = sum(sm.wall_time_s for sm in sms)
         numbers = {
@@ -1086,8 +1083,7 @@ def main() -> int:
         [list(sm.requests) for sm in sms_a], "greedy_then_oldest", runs_a)
     del res_a, sms_a
 
-    cells_b = [[suite_req(c * SM_WARPS_B + w) for w in range(SM_WARPS_B)]
-               for c in range(SM_CELLS_B)]
+    cells_b = grid_b_cells(reqs)
     sms_b, wall_b, got, runs_b = sm_runs(
         "sm run_cells", lambda: sm_torch.run_cells(cells_b,
                                                    policy="round_robin"))

@@ -54,10 +54,7 @@
 //     grows into the filled range first waits for those copies to complete
 //     (cp.async.bulk.wait_group), so its entries land after the fill.
 //     Before exiting, a warp waits only until its copies have read the
-//     tiles (cp.async.bulk.wait_group.read);
-//   - the default layout may be built with __launch_bounds__' minimum CTAs
-//     an SM (HanoiArgs::min_blocks), which caps its registers so that more
-//     warps are resident.
+//     tiles (cp.async.bulk.wait_group.read).
 //
 // Where a literal port would diverge from the reference, this follows it:
 //   - _first_lane of an empty mask is lane 0 (jnp.argmax), not __ffs(0) - 1;
@@ -100,8 +97,6 @@ struct HanoiArgs {
   int N, L, W, NR, NP, NB, M, T;
   unsigned full, active0;
   int majority_first;
-  int min_blocks;                  // the default layout's minimum CTAs an
-                                   // SM: 0 (DEFAULT_MIN_BLOCKS) or a build's
 };
 
 // The layout of a launch: simulated warps a CTA, the parts that live in
@@ -129,9 +124,6 @@ constexpr int FILL_PIECES = 16, FILL_MARGIN = 1024;
 // a simulated warp's state word: stepping, done (a filler fills its row),
 // or passed by the fillers while stepping (it fills its row itself)
 constexpr int STEPPING = 0, DONE = 1, SELF_FILL = 2;
-// the default layout's minimum CTAs an SM (1: no register cap), and the
-// values it is built for
-constexpr int DEFAULT_MIN_BLOCKS = 1;
 
 enum Op : int {
   NOP, EXIT, BRA, BSSY, BSYNC, BMOV_B2R, BMOV_R2B, BREAK, WARPSYNC, YIELD,
@@ -293,10 +285,12 @@ __device__ __forceinline__ bool compare(int a, int b, int code) {
 
 // WARPS simulated warps a CTA; GEN: the layout may put the memory image, the
 // program and the registers in global memory (p.global_*; only at WARPS 1);
-// BIGP: more than 32 predicates, kept in shared memory; MINB: the minimum
-// CTAs an SM the registers are capped for.
-template <int WARPS, bool GEN, bool BIGP, int MINB>
-__global__ void __launch_bounds__(WARPS * 32, MINB) hanoi_kernel(HanoiParams p) {
+// BIGP: more than 32 predicates, kept in shared memory.  The explicit
+// minimum of one CTA an SM leaves ptxas free to take the registers the
+// step code needs; without it ptxas caps them (72 at 4 warps a CTA, and
+// spills in the global layout), and the step runs slower.
+template <int WARPS, bool GEN, bool BIGP>
+__global__ void __launch_bounds__(WARPS * 32, 1) hanoi_kernel(HanoiParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   // the fill's tiles, after the warps' slices; visible to the bulk copies'
   // async proxy before any warp copies them
@@ -768,11 +762,11 @@ __global__ void __launch_bounds__(WARPS * 32, MINB) hanoi_kernel(HanoiParams p) 
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
-template <int WARPS, bool GEN, bool BIGP, int MINB = 1>
+template <int WARPS, bool GEN, bool BIGP>
 int launch(const HanoiParams& p, cudaStream_t stream) {
   if (p.smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        hanoi_kernel<WARPS, GEN, BIGP, MINB>,
+        hanoi_kernel<WARPS, GEN, BIGP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
     if (e != cudaSuccess) return int(e);
   }
@@ -783,23 +777,12 @@ int launch(const HanoiParams& p, cudaStream_t stream) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, hanoi_kernel<WARPS, GEN, BIGP, MINB>, WARPS * 32, p.smem);
+        &per_sm, hanoi_kernel<WARPS, GEN, BIGP>, WARPS * 32, p.smem);
   if (e != cudaSuccess) return int(e);
   const long long need = (p.N + WARPS - 1) / WARPS;
   const int grid = int(min(need, (long long)max(1, per_sm * sms)));
-  hanoi_kernel<WARPS, GEN, BIGP, MINB><<<grid, WARPS * 32, p.smem, stream>>>(p);
+  hanoi_kernel<WARPS, GEN, BIGP><<<grid, WARPS * 32, p.smem, stream>>>(p);
   return int(cudaGetLastError());
-}
-
-// the default layout (4 warps a CTA, everything in shared memory, up to 32
-// predicates) at a minimum of 1, 10 or 11 CTAs an SM
-int launch_default(const HanoiParams& p, cudaStream_t stream) {
-  switch (p.min_blocks ? p.min_blocks : DEFAULT_MIN_BLOCKS) {
-    case 1: return launch<4, false, false, 1>(p, stream);
-    case 10: return launch<4, false, false, 10>(p, stream);
-    case 11: return launch<4, false, false, 11>(p, stream);
-    default: return int(cudaErrorInvalidValue);
-  }
 }
 
 template <bool BIGP>
@@ -808,9 +791,7 @@ int launch_layout(const HanoiParams& p, cudaStream_t stream) {
     return p.warps == 1 ? launch<1, true, BIGP>(p, stream)
                         : int(cudaErrorInvalidValue);
   switch (p.warps) {
-    case 4:
-      if constexpr (BIGP) return launch<4, false, BIGP>(p, stream);
-      else return launch_default(p, stream);
+    case 4: return launch<4, false, BIGP>(p, stream);
     case 2: return launch<2, false, BIGP>(p, stream);
     case 1: return launch<1, false, BIGP>(p, stream);
     default: return int(cudaErrorInvalidValue);

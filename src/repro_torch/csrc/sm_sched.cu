@@ -584,6 +584,40 @@ __global__ void slot_link_kernel(int links, long long* cycles) {
   }
 }
 
+// The narrow layout of a grid on a card of `sms` SMs: the cells spread
+// over every SM, ceil(C / SMs) a CTA, at most MAX_CELLS; whether their
+// opcode columns fit in shared memory (STAGED) and whether a wait can pass
+// the packed word (EXACT); the CTA's shared memory in bytes.
+struct Narrow {
+  int cells, grid, staged, exact, bytes;
+};
+
+Narrow narrow_layout(const SchedParams& p, int sms) {
+  Narrow n;
+  const int code = align16(p.N * p.L);
+  n.cells = int(min((long long)MAX_CELLS,
+                    max(1LL, ((long long)p.C + sms - 1) / sms)));
+  n.grid = (p.C + n.cells - 1) / n.cells;
+  n.staged = LAT_BYTES + (long long)n.cells * (WARP_BYTES + code) <=
+             SMEM_LIMIT;
+  // every wait stays below the packed word's SAT, and no time wraps, when
+  // the cycle after cap slots of the longest gaps stays below 2^31
+  long long lmax = 1;
+  for (int i = 0; i < 32; ++i) lmax = lmax > p.lat[i] ? lmax : p.lat[i];
+  n.exact = lmax >= SAT ||
+      (long long)p.cap * (lmax + 1) + lmax >= (long long)BIG;
+  n.bytes = LAT_BYTES + n.cells * (WARP_BYTES + (n.staged ? code : 0));
+  return n;
+}
+
+int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return int(e);
+}
+
 // the narrow layout's build for a policy
 template <bool EXACT, bool STAGED>
 void (*pick(int policy))(SchedParams, int) {
@@ -607,53 +641,45 @@ int sm_schedule(const SchedParams* params, void* stream) {
     return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p.N <= 32) {
-    const int code = align16(p.N * p.L);
-    // the cells spread over every SM: ceil(C / SMs) a CTA, at most MAX_CELLS;
-    // when there are no more CTAs than SMs, each asks for more than half an
-    // SM's shared memory, so that no two share one (two long cells on one
-    // SM sub-partition would slow each other's slots)
-    int dev = 0, sms = 0, sm_bytes = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(
-          &sm_bytes, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-    if (e != cudaSuccess) return int(e);
-    const int cells = int(min((long long)MAX_CELLS,
-                              max(1LL, ((long long)p.C + sms - 1) / sms)));
-    const int grid = (p.C + cells - 1) / cells;
-    const bool staged =
-        LAT_BYTES + (long long)cells * (WARP_BYTES + code) <= SMEM_LIMIT;
+    int sms = 0;
+    const int e = sm_count(&sms);
+    if (e) return e;
+    const Narrow n = narrow_layout(p, sms);
     const int vec = p.T % 4 == 0 &&
         reinterpret_cast<uintptr_t>(p.trace_pc) % 16 == 0 &&
         reinterpret_cast<uintptr_t>(p.trace_mask) % 16 == 0;
-    // every wait stays below the packed word's SAT, and no time wraps,
-    // when the cycle after cap slots of the longest gaps stays below 2^31
-    long long lmax = 1;
-    for (int i = 0; i < 32; ++i) lmax = lmax > p.lat[i] ? lmax : p.lat[i];
-    const bool exact = lmax >= SAT ||
-        (long long)p.cap * (lmax + 1) + lmax >= (long long)BIG;
-    int bytes = LAT_BYTES + cells * (WARP_BYTES + (staged ? code : 0));
-    if (grid <= sms) bytes = max(bytes, sm_bytes / 2 + 1024);
     using Kernel = void (*)(SchedParams, int);
     Kernel kernel;
-    if (exact)
-      kernel = staged ? pick<true, true>(p.policy) : pick<true, false>(p.policy);
+    if (n.exact)
+      kernel = n.staged ? pick<true, true>(p.policy)
+                        : pick<true, false>(p.policy);
     else
-      kernel = staged ? pick<false, true>(p.policy)
-                      : pick<false, false>(p.policy);
-    if (bytes > 48 * 1024) {
-      e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-      if (e != cudaSuccess) return int(e);
+      kernel = n.staged ? pick<false, true>(p.policy)
+                        : pick<false, false>(p.policy);
+    if (n.bytes > 48 * 1024) {
+      const cudaError_t a = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, n.bytes);
+      if (a != cudaSuccess) return int(a);
     }
-    kernel<<<grid, cells * 32, bytes, s>>>(p, vec);
+    kernel<<<n.grid, n.cells * 32, n.bytes, s>>>(p, vec);
   } else {
     const int threads = min(WIDE_THREADS, (p.N + 31) / 32 * 32);
     sched_cta_kernel<<<p.C, threads, 0, s>>>(p);
   }
   return int(cudaGetLastError());
+}
+
+// sm_schedule's narrow layout for a grid of cells of up to 32 warps on
+// this card, into out: cells a CTA, CTAs, staged, exact, shared memory
+// bytes.  Returns 0, or the CUDA error of the card's query.
+int sm_narrow_layout(const SchedParams* params, int* out) {
+  int sms = 0;
+  const int e = sm_count(&sms);
+  if (e) return e;
+  const Narrow n = narrow_layout(*params, sms);
+  out[0] = n.cells; out[1] = n.grid; out[2] = n.staged; out[3] = n.exact;
+  out[4] = n.bytes;
+  return 0;
 }
 
 // One warp through slot_chain_kernel (link 0) or slot_link_kernel (link

@@ -67,28 +67,18 @@ class _Params(ctypes.Structure):
         + [(n, ctypes.c_int) for n in ("N", "L", "W", "NR", "NP", "NB",
                                        "M", "T")]
         + [("full", ctypes.c_uint), ("active0", ctypes.c_uint)]
-        + [("majority_first", ctypes.c_int), ("min_blocks", ctypes.c_int)])
-
-# the default layout's builds: __launch_bounds__' minimum CTAs an SM (1: no
-# register cap); 0 takes the kernel's DEFAULT_MIN_BLOCKS
-MIN_BLOCKS = (1, 10, 11)
+        + [("majority_first", ctypes.c_int)])
 
 
 def hanoi_run_cuda(programs, skips, regs, mems, lanes, cfg: MachineConfig, *,
                    majority_first: bool = True,
-                   active0: int | None = None,
-                   min_blocks: int = 0) -> HanoiState:
+                   active0: int | None = None) -> HanoiState:
     """Launch K1 on contiguous CUDA tensors: programs [N, L, 8] int32,
     skips [N, L] bool, regs [N, W, NR], mems [N, M] and lanes [N, W]
     int32.  The kernel's layout is :func:`layout`'s for ``cfg`` and the
-    program length; ``min_blocks`` picks the default layout's build (one
-    of :data:`MIN_BLOCKS`, 0 the kernel's own choice; the other layouts
-    have one).  Raises on anything the kernel does not take; never falls
-    back."""
+    program length.  Raises on anything the kernel does not take; never
+    falls back."""
     check_cfg(cfg)
-    if min_blocks and min_blocks not in MIN_BLOCKS:
-        raise ValueError(f"min_blocks must be 0 or one of {MIN_BLOCKS}, got "
-                         f"{min_blocks}")
     dev = programs.device
     ins = (programs, skips, regs, mems, lanes)
     if dev.type != "cuda" or any(t.device != dev for t in ins):
@@ -130,7 +120,7 @@ def hanoi_run_cuda(programs, skips, regs, mems, lanes, cfg: MachineConfig, *,
         None if regs_work is None else regs_work.data_ptr(), work.data_ptr(),
         N, L, W, NR, NP, NB, M, T, full,
         full if active0 is None else int(active0) & 0xFFFFFFFF,
-        int(bool(majority_first)), int(min_blocks))
+        int(bool(majority_first)))
     lib = _build.load("hanoi_step")
     err = lib.hanoi_run(ctypes.byref(params),
                         ctypes.c_void_p(torch.cuda.current_stream(dev)

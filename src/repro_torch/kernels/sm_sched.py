@@ -244,6 +244,35 @@ def sm_schedule_cuda(warp_map, trace_n, ops, trace_pc, trace_mask,
     return Schedule(outs[0], outs[1], outs[2], *counters)
 
 
+class NarrowLayout(NamedTuple):
+    """How K2 lays out a grid of cells of up to 32 warps on the card."""
+
+    cells: int      # cells (hardware warps) a CTA
+    ctas: int
+    staged: bool    # the opcode columns are staged in shared memory
+    exact: bool     # waits may pass the packed word: two more minima a slot
+    smem: int       # a CTA's shared memory bytes
+
+
+def narrow_layout(C: int, N: int, L: int, lat: Sequence[int], *,
+                  out_cap: int) -> NarrowLayout:
+    """:func:`sm_schedule_cuda`'s layout for ``C`` cells of ``N`` <= 32
+    warps, programs of ``L`` rows, the latency table ``lat`` and
+    ``out_cap`` slots, on the current card.  It asks the built library, so
+    it works only where the kernel builds."""
+    if not 1 <= N <= 32:
+        raise ValueError(f"the narrow layout takes 1 to 32 warps, got {N}")
+    params = _Params(*([None] * 10), C, N, 1, L, 1, out_cap, 0,
+                     (ctypes.c_int * 32)(*(int(x) for x in lat)), 0)
+    out = (ctypes.c_int * 5)()
+    lib = _build.load("sm_sched")
+    err = lib.sm_narrow_layout(ctypes.byref(params), out)
+    if err:
+        raise RuntimeError(f"sm_narrow_layout failed: "
+                           f"{_build.cuda_error_string(lib, err)}")
+    return NarrowLayout(out[0], out[1], bool(out[2]), bool(out[3]), out[4])
+
+
 def slot_chain_cycles(device, links: int = 1 << 16, *,
                       narrow_link: bool = False) -> float:
     """Clock cycles a link of the scheduling function's shortest dependent
@@ -272,6 +301,9 @@ def slot_chain_cycles(device, links: int = 1 << 16, *,
 def _argtypes(lib):
     lib.sm_schedule.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
     lib.sm_schedule.restype = ctypes.c_int
+    lib.sm_narrow_layout.argtypes = [ctypes.POINTER(_Params),
+                                     ctypes.POINTER(ctypes.c_int)]
+    lib.sm_narrow_layout.restype = ctypes.c_int
     lib.sm_slot_chain.argtypes = [ctypes.c_int, ctypes.c_int,
                                   ctypes.c_void_p, ctypes.c_void_p]
     lib.sm_slot_chain.restype = ctypes.c_int

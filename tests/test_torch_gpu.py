@@ -907,6 +907,38 @@ def test_sm_sched_narrow_layout_redesign(cuda, case, N):
         assert int(s.sstall[0]) == 2 * (120 - 1)
 
 
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("N", [7, 32])
+def test_sm_sched_narrow_layout_unstaged(cuda, N, exact):
+    """The narrow layout's builds that read the opcode columns from global
+    memory: cells whose N x L opcodes do not fit in shared memory, with
+    pcs inside and outside the program and opcodes out of range, waits
+    inside and past the packed word, every policy; every output bit for
+    bit to the twin and two launches alike."""
+    from repro_torch.kernels.sm_sched import N_OPS, narrow_layout
+    C, T, L = 3, 300, 224_000 // N
+    rng = np.random.default_rng(N + 10 * exact)
+    ops_col = rng.integers(-3, N_OPS + 4, (N, L)).astype(np.int32)
+    trace_pc = rng.integers(-2, L + 2, (N, T)).astype(np.int32)
+    trace_mask = rng.integers(0, 1 << 32, (N, T), dtype=np.uint64) \
+        .astype(np.uint32).view(np.int32)
+    trace_n = rng.integers(0, 40, (C, N)).astype(np.int32)
+    warp_map = rng.integers(0, N, (C, N)).astype(np.int32)
+    lat, is_mem = _sched_tables("alu4_mem100")
+    if exact:
+        lat = lat.copy()
+        lat[::3] = 1 << 22
+    out_cap = -(-int(trace_n.sum(1).max()) // 32) * 32
+    lay = narrow_layout(C, N, L, lat, out_cap=out_cap)
+    assert (lay.staged, lay.exact) == (False, exact)
+    assert narrow_layout(C, N, 301, lat, out_cap=out_cap).staged
+    args = [torch.from_numpy(a).to(cuda) for a in
+            (warp_map, trace_n, ops_col, trace_pc, trace_mask)]
+    for policy in ("greedy_then_oldest", "round_robin", "oldest_first"):
+        s = _k2_and_twin(args, lat, is_mem, out_cap=out_cap, policy=policy)
+        assert torch.equal(s.issued, args[1].sum(1).to(torch.int32))
+
+
 def test_sm_sched_kernel_on_k1_traces(cuda):
     """K2 reads K1's trace buffers in place: the suite at 8 threads, cells
     of 1, 8, 32 and 64 warps drawn from its rows, every policy."""
