@@ -46,7 +46,19 @@ main paths at full width, with random weights or data drawn from a seed:
   K1 and one of K2, every SmResult held to the twins' and the longest cell
   of each policy to ``sm_interleave`` (the third policy through
   ``Simulator().run_sm``'s defaults, ``sm_torch``); then Fig 10 through
-  ``compare(timing="cycle")``, row for row the numpy ``hanoi``'s.
+  ``compare(timing="cycle")``, row for row the numpy ``hanoi``'s;
+- static analysis: ``analyze_program`` over the suite's 23 programs, then
+  each stripped (``strip_annotations``) and synthesized again, and
+  ``Simulator().run_batch(..., synthesize=True, verify=True)`` on the card,
+  one launch of K1 a signature group, every warp held to K1's twin;
+- the archive: ``Simulator(sink=RotatingJsonlSink(...)).run_batch`` over
+  2,112 of the simulator's warps in one launch of K1, read back by
+  ``ArchiveReader``, self-replayed by ``Replayer()`` through K1 at exactly
+  0.0, and 23 runs fetched through ``ArchiveIndex``; the suite archived
+  under ``turing_oracle`` and replayed by ``Replayer("hanoi_torch")``, Fig
+  9's rows; one 8-warp cell a policy through ``run_sm`` with a sink (K1
+  and K2), its warps self-replayed and each cell's cycles and stalls
+  re-derived from the archive, equal to K2's stamp.
 
 Every kernel's launch count is set to 0 just before each path and read just
 after it; a path that launches a kernel another number of times than it
@@ -59,18 +71,23 @@ device.  Any failed phase, or no GPU, exits non-zero before that last line.
 
 times only K1 at the simulator phase's shape (and at 4,096 slots of fuel,
 its stepping with a 16th of the fill) and K2 at the SM model's grids (a)
-and (b), on the operands those phases build, with the package under
-``DIR`` (a directory inside this checkout; default: its ``src``), and
-prints them as one JSON line: unpack another tree inside the checkout and
-run both in one call, in turns, to compare them on one card.
+and (b), on the operands those phases build, and the host walls of the
+simulator phase's ``run_batch`` and of grids (a) and (b) (each run once
+untimed, then timed), with the package under ``DIR`` (a directory inside
+this checkout; default: its ``src``), and prints them as one JSON line:
+unpack another tree inside the checkout and run both in one call, in
+turns, to compare them on one card.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -114,6 +131,10 @@ SLOT_CYCLES, CLOCK_HZ = 30, 1.98e9
 # own program and memory, round robin
 SM_CELLS_A, SM_WARPS_A = 1056, 8
 SM_CELLS_B, SM_WARPS_B = 264, 32
+# the archive phase: a quarter of the simulator phase's warps (132 SMs x
+# 16), written through a sink, read, replayed and indexed on the host
+ARCHIVE_WARPS = 132 * 16
+POLICIES = ("greedy_then_oldest", "round_robin", "oldest_first")
 
 
 def phase(name: str, **fields) -> None:
@@ -244,7 +265,8 @@ def grid_b_cells(reqs):
 
 def k1k2_times(src: Path) -> int:
     """K1's ms at the simulator phase's shape and K2's at grids (a) and
-    (b), with the package under ``src``; one JSON line."""
+    (b), and the host walls of those three paths, with the package under
+    ``src``; one JSON line."""
     if ROOT not in (src, *src.parents):
         print(f"chip_smoke: --src {src} is not inside {ROOT}",
               file=sys.stderr)
@@ -252,7 +274,7 @@ def k1k2_times(src: Path) -> int:
     sys.path.insert(0, str(src))
     from repro_torch.core import programs
     from repro_torch.core.isa import MachineConfig
-    from repro_torch.engine import SimRequest
+    from repro_torch.engine import SimRequest, Simulator
     from repro_torch.engine.mechanisms import sm_torch
     from repro_torch.kernels import ops
 
@@ -269,9 +291,27 @@ def k1k2_times(src: Path) -> int:
     k2 = {g: grid_kernel_times(ops, sm_torch, sm_torch.grid_of(
         cells, policy=policy, inner_label="hanoi_torch"))[1]
         for g, (cells, policy) in grids.items()}
+    # the main paths' host walls, as the simulator and sm phases drive them
+    sim = Simulator()
+    sm_meta = {"sm_warps": SM_WARPS_A, "sm_policy": "greedy_then_oldest",
+               "sm_inner": "hanoi_torch"}
+    sm_reqs = [dataclasses.replace(r, meta=sm_meta)
+               for r in reqs[:SM_CELLS_A]]
+    paths = {"run_batch": lambda: sim.run_batch(reqs),
+             "sm_a": lambda: sim.run_batch(sm_reqs, mechanism="sm_torch"),
+             "sm_b": lambda: sm_torch.run_cells(grids["b"][0],
+                                                policy="round_robin")}
+    walls = {}
+    for name, fn in paths.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls[f"{name}_wall_s"] = time.perf_counter() - t0
     print(json.dumps({"src": str(src), "k1_ms": k1_ms,
                       "k1_ms_fuel_4096": k1_short_ms, "k2_ms": k2["a"],
-                      "k2_ms_grid_b": k2["b"]}), flush=True)
+                      "k2_ms_grid_b": k2["b"], **walls}), flush=True)
     return 0
 
 
@@ -287,14 +327,17 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch.nn.functional as F
 
+    from repro_torch.analysis import (analyze_program, strip_annotations,
+                                      synthesize_annotations)
+    from repro_torch.archive import ArchiveIndex, ArchiveReader, Replayer
     from repro_torch.configs import get_config
     from repro_torch.core import hanoi as hanoi_core
     from repro_torch.core import interp, programs
     from repro_torch.core.isa import MachineConfig, Op
     from repro_torch.engine import SimRequest, Simulator, as_request
-    from repro_torch.engine import get_mechanism
+    from repro_torch.engine import RotatingJsonlSink, get_mechanism
     from repro_torch.service.planner import plan_dispatch
-    from repro_torch.engine.adapters import _batch_arrays
+    from repro_torch.engine.adapters import _batch_arrays, state_results
     from repro_torch.engine.mechanisms import sm_torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import hanoi_step as hs
@@ -1128,6 +1171,224 @@ def main() -> int:
           paper_pct=0.19,
           rows={r.program: f"{100 * r.ipc_delta:.4f}" for r in rows10})
 
+    # 5f. static analysis and annotation synthesis, then the synthesized
+    # suite on the card ---------------------------------------------------------
+    t0 = time.perf_counter()
+    reports = [analyze_program(b.program, sim_cfg, name=b.name)
+               for b in suite]
+    analyze_s = time.perf_counter() - t0
+    for r in reports:
+        print(f"  {r.name}: ok={r.ok} errors={len(r.errors)} "
+              f"warnings={len(r.warnings)} codes={list(r.codes())}")
+    check(all(r.ok and not r.warnings for r in reports),
+          "a suite program has static errors or warnings")
+    t0 = time.perf_counter()
+    stripped = [strip_annotations(b.program, sim_cfg) for b in suite]
+    synthesized = [synthesize_annotations(s.program, sim_cfg, name=b.name)
+                   for b, s in zip(suite, stripped)]
+    synth_s = time.perf_counter() - t0
+    deviated = [b.name for b, r in zip(suite, synthesized)
+                if not np.array_equal(r.program, b.program)]
+    check(deviated == ["FIG5"], f"strip -> synthesize is not bit-equal "
+          f"outside FIG5: {deviated}")
+    # the stripped programs go in; run_batch synthesizes and verifies them
+    bare = [SimRequest(program=s.program, cfg=sim_cfg, name=b.name,
+                       init_mem=b.init_mem) for b, s in zip(suite, stripped)]
+    syn_reqs = [dataclasses.replace(q, program=r.program)
+                for q, r in zip(bare, synthesized)]
+    groups_syn = len(plan_dispatch(get_mechanism("hanoi_torch"), syn_reqs))
+    syn_results, syn_wall, got = run_path(
+        "analysis run_batch", lambda: sim.run_batch(
+            bare, synthesize=True, verify=True), {"hanoi_run": groups_syn})
+    _, syn_ins = hanoi_operands(syn_reqs, sim_cfg)
+    syn_twin = state_results(syn_reqs, hanoi_core.hanoi_run_plain(
+        *syn_ins, sim_cfg), 0.0)
+    del syn_ins
+    for a, b in zip(syn_results, syn_twin):
+        check(a.mechanism == "hanoi_torch"
+              and (a.trace, a.steps, a.fuel_left, a.finished, a.status,
+                   a.error) == (b.trace, b.steps, b.fuel_left, b.finished,
+                                b.status, b.error)
+              and all(np.array_equal(getattr(a, f), getattr(b, f))
+                      for f in ("regs", "preds", "mem")),
+              f"synthesized {a.mechanism} run differs from K1's twin")
+    phase("analysis", programs=len(suite), cfg="32 threads, 256 words, "
+          "60000 fuel", launches=got, groups=groups_syn,
+          analyze_s=f"{analyze_s:.4f}",
+          analyzer_programs_per_s=f"{len(suite) / analyze_s:.1f}",
+          synthesize_s=f"{synth_s:.4f}",
+          synthesizer_programs_per_s=f"{len(suite) / synth_s:.1f}",
+          regions=sum(r.regions for r in synthesized),
+          spills=sum(r.spills for r in synthesized),
+          yields=sum(r.yields for r in synthesized),
+          run_batch_wall_s=f"{syn_wall:.4f}",
+          deviations=deviated, held_to="K1's twin, bit for bit",
+          card=repr(smi))
+
+    # 5g. trace sinks and the archive, on the card ----------------------------
+    archive_numbers = {}
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    archive_root = Path(tempfile.mkdtemp(prefix="chip_smoke_archive_",
+                                         dir=scratch))
+    try:
+        # [archive]: write 2,112 warps of the simulator phase through a
+        # rotating sink, read them back, self-replay and index them
+        arch_reqs = reqs[:ARCHIVE_WARPS]
+        plain, plain_wall, got = run_path(
+            "archive run_batch without a sink",
+            lambda: sim.run_batch(arch_reqs), {"hanoi_run": 1})
+        sink = RotatingJsonlSink(str(archive_root / "suite"))
+
+        def write():
+            out = Simulator(sink=sink).run_batch(arch_reqs)
+            sink.flush()
+            return out
+        written, write_wall, got = run_path(
+            "archive run_batch with a sink", write, {"hanoi_run": 1})
+        sink.close()
+        check(sink.write_error is None and sink.runs_written == len(
+            arch_reqs), f"the sink wrote {sink.runs_written} runs "
+            f"({sink.write_error})")
+        check([r.trace for r in written] == [r.trace for r in plain],
+              "a sink changed run_batch's results")
+        events = sum(len(r.trace) for r in written)
+        reader = ArchiveReader(str(archive_root / "suite"))
+        t0 = time.perf_counter()
+        runs = reader.runs()
+        read_s = time.perf_counter() - t0
+        check(reader.report.clean and len(runs) == len(arch_reqs),
+              f"archive read back: {len(runs)} runs, clean="
+              f"{reader.report.clean}")
+        check(all(r.trace == w.trace and r.steps == w.steps
+                  and r.status == w.status.value
+                  for r, w in zip(runs, written)),
+              "an archived run differs from its result")
+        replayed, replay_s, got_replay = run_path(
+            "archive self-replay", lambda: Replayer().replay(runs),
+            {"hanoi_run": 1})
+        check(replayed.replayed == len(arch_reqs)
+              and replayed.mean_discrepancy() == 0.0
+              and all(r.discrepancy == 0.0 for r in replayed.rows)
+              and {r.replay_mechanism for r in replayed.rows}
+              == {"hanoi_torch"},
+              f"self-replay: {replayed.replayed} runs, mean "
+              f"{replayed.mean_discrepancy()}")
+        t0 = time.perf_counter()
+        index = ArchiveIndex.build(str(archive_root / "suite"))
+        index_s = time.perf_counter() - t0
+        picks = [len(runs) * i // len(suite) for i in range(len(suite))]
+        t0 = time.perf_counter()
+        got_runs = [reader.get(index.entries[i].run_id) for i in picks]
+        get_s = time.perf_counter() - t0
+        check(all(g.trace == runs[i].trace and dict(g.meta)
+                  == dict(runs[i].meta) and g.status == runs[i].status
+                  for g, i in zip(got_runs, picks)),
+              "an indexed get differs from the scan")
+        archive_numbers["archive"] = {
+            "warps": len(arch_reqs), "issue_events": events,
+            "files": len(sink.paths), "bytes": sink.bytes_written,
+            "run_batch_wall_s_no_sink": plain_wall,
+            "write_wall_s": write_wall,
+            "sink_s": write_wall - plain_wall,
+            "write_runs_per_s": len(arch_reqs) / write_wall,
+            "read_s": read_s, "read_runs_per_s": len(runs) / read_s,
+            "replay_s": replay_s,
+            "replay_runs_per_s": len(runs) / replay_s,
+            "index_build_s": index_s, "gets": len(picks),
+            "get_ms": 1e3 * get_s / len(picks),
+            "mean_discrepancy": replayed.mean_discrepancy()}
+        phase("archive", launches_write=got, launches_replay=got_replay,
+              **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                 for k, v in archive_numbers["archive"].items()},
+              card=repr(smi))
+
+        # [archive_fig9]: the suite archived under turing_oracle (numpy, one
+        # warp a program, as the fig9 phase runs it), replayed through
+        # hanoi_torch: the fig9 phase's discrepancies, row for row
+        t0 = time.perf_counter()
+        sink = RotatingJsonlSink(str(archive_root / "fig9"))
+        Simulator("turing_oracle", sink=sink).run_batch(suite, sim_cfg)
+        sink.close()
+        oracle_write_s = time.perf_counter() - t0
+        fig9_replay, fig9_replay_s, got = run_path(
+            "archive_fig9 replay", lambda: Replayer("hanoi_torch").replay(
+                str(archive_root / "fig9")), {"hanoi_run": groups})
+        replay_rows = [(r.program, r.discrepancy) for r in fig9_replay.rows]
+        check(replay_rows == [(r.program, r.discrepancy) for r in rows],
+              "the oracle archive's replay differs from the fig9 phase's "
+              "rows")
+        fig9_archive_mean = fig9_replay.mean_discrepancy()
+        check(f"{100 * fig9_archive_mean:.4f}" == f"{100 * fig9_mean:.4f}",
+              f"archive Fig 9 {fig9_archive_mean} against {fig9_mean}")
+        archive_numbers["archive_fig9"] = {
+            "programs": fig9_replay.replayed,
+            "oracle_write_s": oracle_write_s, "replay_s": fig9_replay_s,
+            "mean_discrepancy_pct": 100 * fig9_archive_mean,
+            "fig9_phase_pct": 100 * fig9_mean,
+            "equal_bits": fig9_archive_mean == fig9_mean}
+        phase("archive_fig9", pair="hanoi_torch/turing_oracle (archived)",
+              launches=got,
+              **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                 for k, v in archive_numbers["archive_fig9"].items()})
+
+        # [archive_sm]: one 8-warp cell a policy through run_sm with a sink
+        # (sm_torch: one K1 and one K2 launch a cell); every archived warp
+        # self-replays standalone, and each cell's cycles and stalls are
+        # re-derived from the archive by the numpy interleave_cycle
+        sink = RotatingJsonlSink(str(archive_root / "sm"))
+        sm_sim = Simulator(sink=sink)
+        cells, cell_got = {}, {}
+        t0 = time.perf_counter()
+        for k, policy in enumerate(POLICIES):
+            cell_reqs = [suite_req(8 * k + w) for w in range(8)]
+            cells[policy], _, cell_got[policy] = run_path(
+                f"archive_sm run_sm {policy}",
+                lambda: sm_sim.run_sm(cell_reqs, policy=policy),
+                {"hanoi_run": 1, "sm_schedule": 1})
+            check(cells[policy].mechanism == "sm_torch",
+                  f"run_sm ran {cells[policy].mechanism}")
+        sink.close()
+        sm_write_s = time.perf_counter() - t0
+        sm_reader = ArchiveReader(str(archive_root / "sm"))
+        sm_runs = sm_reader.runs()
+        check(sm_reader.report.clean and len(sm_runs) == 8 * len(POLICIES),
+              f"SM archive read back {len(sm_runs)} warps")
+        sm_replay, sm_replay_s, got = run_path(
+            "archive_sm self-replay", lambda: Replayer().replay(sm_runs),
+            {"hanoi_run": 1})
+        check(sm_replay.replayed == len(sm_runs)
+              and all(r.discrepancy == 0.0 for r in sm_replay.rows),
+              "an archived SM warp does not self-replay to 0.0")
+        t0 = time.perf_counter()
+        rederived = Replayer().rederive_timing(sm_runs)
+        rederive_s = time.perf_counter() - t0
+        fields = ("cycles", "thread_instructions", "busy_cycles",
+                  "issue_stall_cycles", "scoreboard_stall_cycles",
+                  "memory_stall_cycles")
+        check(len(rederived) == len(POLICIES), "lost an SM cell")
+        for td in rederived:
+            sm = cells[td.policy]
+            stamp = td.archived
+            check(td.matches_archive and all(
+                getattr(td.result, f) == stamp[f] == getattr(sm, f)
+                for f in fields),
+                f"{td.policy}: re-derived timing differs from K2's stamp")
+        archive_numbers["archive_sm"] = {
+            "cells": len(rederived), "warps": len(sm_runs),
+            "write_s": sm_write_s, "replay_s": sm_replay_s,
+            "rederive_s": rederive_s,
+            "cycles": {p: cells[p].cycles for p in POLICIES}}
+        phase("archive_sm", launches_run_sm=cell_got,
+              launches_replay=got,
+              held_to="numpy interleave_cycle over the archive "
+                      "(cycles, instructions, busy, stalls), each cell",
+              **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                 for k, v in archive_numbers["archive_sm"].items()})
+    finally:
+        shutil.rmtree(archive_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
     # 6. kernel times at the main paths' shapes ------------------------------
     def attention_times(B, S, H, K, hd, window):
         q, k, v = qkv(B, S, H, K, hd, torch.bfloat16)
@@ -1306,7 +1567,8 @@ def main() -> int:
          "trace_fill_ms": fill_ms, "trace_fill_bytes": fill_bytes,
          "ptxas": ptxas["hanoi_step"], "checks": k1_checks,
          "layout_checks": k1_layouts,
-         "simulator": sim_numbers, "fig9_mean_discrepancy": fig9_mean},
+         "simulator": sim_numbers, "fig9_mean_discrepancy": fig9_mean,
+         "archive": archive_numbers},
         {"name": "sm_sched", "route": "cuda",
          "status": "redesigned",
          "source": "src/repro_torch/csrc/sm_sched.cu",

@@ -21,8 +21,9 @@ Layout: :mod:`.types` (frozen :class:`SimRequest` / :class:`SimResult` /
 :class:`SmResult`, :class:`SimStatus`), :mod:`.registry` (the mechanism
 registry), :mod:`.adapters` (``hanoi``, ``turing_oracle``, ``simt_stack``,
 ``dualpath`` and ``hanoi_torch``), :mod:`.mechanisms` (``volta_itps``,
-``sm_interleave`` and ``sm_torch``), :mod:`.simulator` (the
-:class:`Simulator` façade), :mod:`.compile_cache` (affinity tokens).  The
+``sm_interleave`` and ``sm_torch``), :mod:`.sinks` (the
+:class:`TraceSink` consumers and the archive's replay meta),
+:mod:`.simulator` (the :class:`Simulator` façade), :mod:`.compile_cache` (affinity tokens).  The
 registry is the port's own: nothing is registered into ``repro``'s.
 """
 from repro_torch.core.isa import MachineConfig
@@ -30,6 +31,9 @@ from repro_torch.core.isa import MachineConfig
 from .registry import (Mechanism, available_mechanisms, get_mechanism,
                        iter_mechanisms, register_mechanism,
                        unregister_mechanism)
+from .sinks import (JsonlSink, MemorySink, RingBufferSink, RotatingJsonlSink,
+                    TraceSink, feed_result, replay_payload, run_meta,
+                    sm_run_meta, timing_meta)
 from .types import (SimRequest, SimResult, SimStatus, SmResult,
                     classify_status, worst_status)
 from .simulator import CompareReport, CompareRow, Simulator, as_request
@@ -37,10 +41,12 @@ from . import adapters as _adapters            # registers the built-ins
 from . import mechanisms as _mechanisms        # registers the plugins
 
 __all__ = [
-    "CompareReport", "CompareRow", "MachineConfig", "Mechanism",
+    "CompareReport", "CompareRow", "JsonlSink", "MachineConfig",
+    "Mechanism", "MemorySink", "RingBufferSink", "RotatingJsonlSink",
     "SimRequest", "SimResult", "SimStatus", "Simulator", "SmResult",
-    "as_request",
-    "available_mechanisms", "classify_status", "get_mechanism",
-    "iter_mechanisms", "register_mechanism", "unregister_mechanism",
-    "worst_status",
+    "TraceSink", "as_request",
+    "available_mechanisms", "classify_status", "feed_result",
+    "get_mechanism", "iter_mechanisms", "register_mechanism",
+    "replay_payload", "run_meta", "sm_run_meta", "timing_meta",
+    "unregister_mechanism", "worst_status",
 ]

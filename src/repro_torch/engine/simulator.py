@@ -1,11 +1,9 @@
 """The Simulator façade: one entry point over every registered mechanism.
 
 Port of ``repro.engine.simulator``: ``run``, ``run_batch``, ``run_sm`` and
-``compare``.  The paths whose modules are not ported yet raise
-``NotImplementedError`` naming their ROADMAP.md item, and never fall back:
-static verification and annotation synthesis (``verify=``, ``synthesize=``:
-``repro.analysis``) and trace sinks (``sink=``: ``engine.sinks`` needs
-``analysis.fingerprint``), item 13.
+``compare``, with static verification and annotation synthesis
+(``verify=``, ``synthesize=``: :mod:`repro_torch.analysis`) and trace sinks
+(``sink=``: :mod:`repro_torch.engine.sinks`).
 
 ``Simulator.run`` executes one request, ``run_batch`` many (one launch of
 kernel K1 a batch on ``hanoi_torch``; sequential — or opt-in
@@ -34,7 +32,9 @@ from repro_torch.core.isa import MachineConfig
 from repro_torch.core.timing import TimingConfig, ipc_delta, simulate
 from repro_torch.core.trace import discrepancy
 
-from .registry import get_mechanism
+from .registry import Mechanism, get_mechanism
+from .sinks import (TraceSink, feed_result, next_sm_cell_id, run_meta,
+                    sm_run_meta, timing_meta)
 from .types import SimRequest, SimResult, SmResult
 
 ProgramLike = Any    # np.ndarray | Benchmark | SimRequest
@@ -125,12 +125,6 @@ class CompareReport:
                               for r in self.pair(mech_a, mech_b)]))
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, open items, "
-        f"{item})")
-
-
 class Simulator:
     """Façade over the mechanism registry.
 
@@ -142,6 +136,8 @@ class Simulator:
     A default mechanism is chosen at construction (``hanoi_torch``: kernel
     K1 on the card); ``run``/``run_batch`` accept ``mechanism=`` overrides,
     and ``compare`` takes an explicit list.
+    A :class:`~repro_torch.engine.sinks.TraceSink` attached at construction
+    (or per call) receives every normalized trace.
 
     ``device`` is where the torch mechanisms (``hanoi_torch``, ``sm_torch``)
     run: None means the card, resolved by :func:`repro_torch.device.resolve`
@@ -154,18 +150,17 @@ class Simulator:
     default (None) runs them sequentially: the reference interpreters are
     per-slot Python loops over tiny arrays, so they hold the GIL and a pool
     only adds contention.
-
-    ``sink`` and ``verify`` are kept for the reference's signature and
-    raise unless unset: trace sinks and the static verifier are not ported.
     """
 
     def __init__(self, mechanism: str = "hanoi_torch", *, device=None,
-                 sink=None, max_workers: int | None = None,
+                 sink: TraceSink | None = None,
+                 max_workers: int | None = None,
                  verify: "bool | str" = False) -> None:
         self._default = get_mechanism(mechanism).name   # validate eagerly
         self._device = None if device is None else str(device)
+        self._sink = sink
         self._max_workers = max_workers
-        self._check_unported(sink, verify, False)
+        self._verify = verify
 
     @property
     def mechanism(self) -> str:
@@ -181,31 +176,68 @@ class Simulator:
         return dataclasses.replace(req, meta={**req.meta,
                                               "device": self._device})
 
+    def _check(self, reqs: "Iterable[SimRequest]",
+               verify: "bool | str | None") -> None:
+        """Static pre-admission verification (:mod:`repro_torch.analysis`).
+
+        ``verify=True`` raises
+        :class:`~repro_torch.analysis.StaticAnalysisError` for programs
+        with ``error``-level diagnostics before any engine runs;
+        ``"strict"`` also fails on warnings.  Default off: the façade is
+        also the tool used to *study* broken programs (the volta_itps
+        structural-deadlock experiments run them on purpose).
+        """
+        verify = self._verify if verify is None else verify
+        if not verify:
+            return
+        from repro_torch.analysis import verify_program   # lazy: light path
+        for req in reqs:
+            verify_program(req.program, req.resolved_cfg(), name=req.name,
+                           strict=(verify == "strict"))
+
     @staticmethod
-    def _check_unported(sink, verify, synthesize) -> None:
-        if sink is not None:
-            raise _not_ported("sink= (engine.sinks, whose replay meta needs "
-                              "analysis.fingerprint)", "item 13")
-        if verify:
-            raise _not_ported("verify= (repro.analysis)", "item 13")
-        if synthesize:
-            raise _not_ported("synthesize= (repro.analysis)", "item 13")
+    def _synthesize(reqs: "list[SimRequest]") -> "list[SimRequest]":
+        """Rewrite each request's program through the annotation
+        synthesizer (:func:`repro_torch.analysis.synthesize_annotations`):
+        BSSY/BSYNC regions for unannotated divergent branches, BMOV
+        spills past the Bx file, YIELD in spin-loops.
+
+        Raises :class:`repro_torch.analysis.TransformError` when a program
+        cannot be safely rewritten (CALL/RET-crossing regions,
+        unstructured joins).  Note ``bsync_skip_pcs`` is *not* remapped —
+        a request combining ``synthesize=True`` with oracle skip-pcs
+        would point at stale pcs, so pick one or the other.
+        """
+        from repro_torch.analysis import synthesize_annotations  # lazy
+        out = []
+        for req in reqs:
+            syn = synthesize_annotations(req.program, req.resolved_cfg(),
+                                         name=req.name)
+            out.append(dataclasses.replace(req, program=syn.program)
+                       if syn.changed else req)
+        return out
 
     # -- single run ---------------------------------------------------------
 
     def run(self, program: ProgramLike, cfg: MachineConfig | None = None, *,
-            mechanism: str | None = None, sink=None,
+            mechanism: str | None = None, sink: TraceSink | None = None,
             verify: "bool | str | None" = None, synthesize: bool = False,
             **request_kw) -> SimResult:
-        self._check_unported(sink, verify, synthesize)
         mech = get_mechanism(mechanism or self._default)
-        return mech(self._request(program, cfg, **request_kw))
+        req = self._request(program, cfg, **request_kw)
+        if synthesize:
+            [req] = self._synthesize([req])
+        self._check([req], verify)
+        result = mech(req)
+        self._feed_sink(sink or self._sink, mech, req, result)
+        return result
 
     # -- batched run --------------------------------------------------------
 
     def run_batch(self, programs: Sequence[ProgramLike],
                   cfg: MachineConfig | None = None, *,
-                  mechanism: str | None = None, sink=None,
+                  mechanism: str | None = None,
+                  sink: TraceSink | None = None,
                   verify: "bool | str | None" = None,
                   synthesize: bool = False,
                   **request_kw) -> list[SimResult]:
@@ -218,14 +250,21 @@ class Simulator:
         launch of K1), and the per-request remainder runs sequentially
         unless the Simulator was built with ``max_workers``.
         """
-        self._check_unported(sink, verify, synthesize)
         mech = get_mechanism(mechanism or self._default)
         reqs = [self._request(p, cfg, **request_kw) for p in programs]
         if not reqs:
             return []
+        if synthesize:
+            reqs = self._synthesize(reqs)
+        self._check(reqs, verify)
         from repro_torch.service.planner import execute_plan  # lazy: no
-        return execute_plan(mech, reqs,                      # import cycle
-                            max_workers=self._max_workers)
+        results = execute_plan(mech, reqs,                   # import cycle
+                               max_workers=self._max_workers)
+        out_sink = sink or self._sink
+        if out_sink is not None:
+            for req, res in zip(reqs, results):
+                self._feed_sink(out_sink, mech, req, res)
+        return results
 
     # -- per-SM multi-warp execution ----------------------------------------
 
@@ -236,7 +275,7 @@ class Simulator:
                policy: str = "round_robin",
                timing_cfg: "TimingConfig | object" = TimingConfig(),
                sm_mechanism: str | None = None,
-               sink=None,
+               sink: TraceSink | None = None,
                **request_kw) -> SmResult:
         """Run N warps on one SM through a single-warp mechanism.
 
@@ -261,8 +300,14 @@ class Simulator:
         (Python scheduler, any single-warp ``inner``); the two give
         bit-identical results.  The default, None, is ``sm_torch`` for a
         hanoi ``inner`` (``hanoi``, ``hanoi_torch``) and ``sm_interleave``
-        for any other.  A ``sink`` is not ported yet (ROADMAP.md item 13)
-        and raises.
+        for any other.
+
+        A sink receives each warp as one normalized run whose begin event
+        is the SM variant of the replay meta
+        (:func:`~repro_torch.engine.sinks.sm_run_meta`: warp index, cell
+        width, policy, cell id, full replay payload, and the cell's
+        ``sm_timing`` stamp) — SM-cell archives replay offline exactly like
+        single-warp ones.
         """
         from .mechanisms.sm import build_sm_result, per_warp_programs
         if sm_mechanism == "sm_jax":
@@ -272,7 +317,6 @@ class Simulator:
         if sm_mechanism not in (None, "sm_interleave", "sm_torch"):
             raise ValueError(f"sm_mechanism must be 'sm_interleave' or "
                              f"'sm_torch', got {sm_mechanism!r}")
-        self._check_unported(sink, False, False)
         if inner is None:
             inner_name = self._default
             if "composite" in get_mechanism(inner_name).tags:
@@ -293,16 +337,32 @@ class Simulator:
         reqs = [self._request(p, cfg, **request_kw) for p in per_warp]
         if sm_mechanism == "sm_torch":
             from .mechanisms.sm_torch import run_cells
-            return run_cells([reqs], policy=policy, timing_cfg=timing_cfg,
-                             inner_label=inner_name)[0]
-        from repro_torch.service.planner import execute_plan  # lazy: no
-        mech = get_mechanism(inner_name)                      # cycle
-        t0 = time.perf_counter()
-        results = execute_plan(mech, reqs, max_workers=self._max_workers)
-        wall = time.perf_counter() - t0
-        return build_sm_result(reqs, results, inner=inner_name,
-                               policy=policy, timing_cfg=timing_cfg,
-                               wall_time_s=wall)
+            sm = run_cells([reqs], policy=policy, timing_cfg=timing_cfg,
+                           inner_label=inner_name)[0]
+            results: Sequence[SimResult] = sm.warps
+        else:
+            # dispatch through the shared planner (the run_batch path) but
+            # feed the sink ourselves: warps of an SM cell archive under
+            # sm_run_meta, not the single-warp run_meta run_batch stamps
+            from repro_torch.service.planner import execute_plan  # lazy
+            mech = get_mechanism(inner_name)
+            t0 = time.perf_counter()
+            results = execute_plan(mech, reqs,
+                                   max_workers=self._max_workers)
+            wall = time.perf_counter() - t0
+            sm = build_sm_result(reqs, results, inner=inner_name,
+                                 policy=policy, timing_cfg=timing_cfg,
+                                 wall_time_s=wall)
+        out_sink = sink or self._sink
+        if out_sink is not None:
+            cell = next_sm_cell_id()
+            tmeta = timing_meta(sm)
+            for w, (req, res) in enumerate(zip(reqs, results)):
+                feed_result(out_sink, res,
+                            sm_run_meta(inner_name, req, warp=w,
+                                        n_warps=len(reqs), policy=sm.policy,
+                                        cell=cell, timing=tmeta))
+        return sm
 
     # -- mechanism comparison (the paper's evaluation as an API) ------------
 
@@ -421,3 +481,12 @@ class Simulator:
                     trace_len_a=len(ra.trace), trace_len_b=len(rb.trace)))
         return CompareReport(mechanisms=tuple(names), rows=tuple(rows),
                              results=results, timing_results=timing_cache)
+
+    # -- internals ----------------------------------------------------------
+
+    @staticmethod
+    def _feed_sink(sink: TraceSink | None, mech: Mechanism,
+                   req: SimRequest, result: SimResult) -> None:
+        if sink is None:       # don't build the replay payload just to
+            return             # throw it away — run/run_batch hot path
+        feed_result(sink, result, run_meta(mech.name, req))

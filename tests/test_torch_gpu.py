@@ -560,6 +560,40 @@ def test_hanoi_torch_on_card_matches_numpy(cuda):
             np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
 
 
+def test_replayer_on_card_ignores_archived_device(cuda, tmp_path):
+    """An archive written on the CPU, its requests rewritten to name
+    ``device: "cpu"`` as another writer might: ``Replayer()`` replays it on
+    the card all the same (one launch of K1 for the suite's one signature
+    group), bit-equal to the archive."""
+    import json
+
+    from repro_torch.archive import ArchiveReader, Replayer
+    from repro_torch.core.isa import MachineConfig
+    from repro_torch.core.programs import make_suite
+    from repro_torch.engine import RotatingJsonlSink, Simulator
+    cfg = MachineConfig(n_threads=8, mem_size=64, max_steps=8192)
+    suite = [b for b in make_suite(cfg, datasets=1) if not b.skip_bsync_pcs]
+    sink = RotatingJsonlSink(str(tmp_path))
+    Simulator(device="cpu", sink=sink).run_batch(suite, cfg)
+    sink.close()
+    for path in sink.paths:
+        with open(path, encoding="utf-8") as fh:
+            events = [json.loads(line) for line in fh]
+        for ev in events:
+            if ev["event"] == "begin":
+                assert "device" not in ev["replay"]["meta"]
+                ev["replay"]["meta"]["device"] = "cpu"
+        with open(path, "w", encoding="utf-8") as fh:
+            fh.writelines(json.dumps(ev) + "\n" for ev in events)
+    runs = ArchiveReader(str(tmp_path)).runs()
+    assert all(r.request().meta["device"] == "cpu" for r in runs)
+    before = ops.hanoi_run.launches
+    report = Replayer().replay(runs)
+    assert ops.hanoi_run.launches == before + 1
+    assert report.replayed == len(suite) == len(runs) > 0
+    assert report.mean_discrepancy() == 0.0
+
+
 def test_hanoi_kernel_rejects_what_it_does_not_take(cuda):
     from repro_torch.core.isa import MachineConfig
     from repro_torch.kernels import hanoi_step

@@ -312,11 +312,22 @@ def test_entry_points_need_a_card_unless_given_the_cpu():
 
 
 def test_unported_paths_raise_naming_the_roadmap():
-    prog = tprograms.fig5_program()
-    sim = Simulator()
-    for call in (lambda: sim.run(prog, CFG4, verify=True),
-                 lambda: sim.run_batch([prog], CFG4, synthesize=True),
-                 lambda: Simulator(sink=object()),
-                 lambda: sim.run_sm(prog, CFG4, sink=object())):
+    """The simulator paths still waiting for the service's port (replay
+    through a service, the ``sim`` and ``replay`` serve modes) raise and
+    name their ROADMAP.md item; ``verify=``, ``synthesize=`` and ``sink=``
+    are ported and run (``tests/test_torch_analysis.py``,
+    ``tests/test_torch_archive.py``)."""
+    from repro_torch.archive import Replayer
+    from repro_torch.engine import MemorySink
+    from repro_torch.launch import serve
+    for call in (lambda: Replayer(service=object()),
+                 lambda: serve.main(["--mode", "sim"]),
+                 lambda: serve.main(["--mode", "replay"])):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
+    prog = tprograms.fig5_program()
+    sink = MemorySink()
+    sim = Simulator(device="cpu", sink=sink, verify="strict")
+    sim.run(prog, CFG4, synthesize=True)
+    sim.run_sm(prog, CFG4, n_warps=2)
+    assert len(sink.runs) == 3
