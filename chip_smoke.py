@@ -58,7 +58,18 @@ main paths at full width, with random weights or data drawn from a seed:
   under ``turing_oracle`` and replayed by ``Replayer("hanoi_torch")``, Fig
   9's rows; one 8-warp cell a policy through ``run_sm`` with a sink (K1
   and K2), its warps self-replayed and each cell's cycles and stalls
-  re-derived from the archive, equal to K2's stamp.
+  re-derived from the archive, equal to K2's stamp; the archive's runs
+  replayed again through ``Replayer(service=SimulationService())``, the
+  same report;
+- the simulation service: the simulator's 8,448 warps submitted one by one
+  to ``SimulationService()`` with its defaults (``hanoi_torch`` on the
+  card, 64 a batch, two workers), every result equal to
+  ``Simulator().run_batch``'s, then 4,224 of them as Poisson arrivals at
+  half the measured rate (latency percentiles); 24 SM cells of 8 warps
+  through ``run_sm_grid`` (K1 and K2 a cell), each equal to
+  ``Simulator().run_sm``'s; 2,112 warps through two shard processes with a
+  persistent kernel cache under ``build/``, cold and then restarted, the
+  restarted service taking no kernel-cache miss.
 
 Every kernel's launch count is set to 0 just before each path and read just
 after it; a path that launches a kernel another number of times than it
@@ -135,6 +146,13 @@ SM_CELLS_B, SM_WARPS_B = 264, 32
 # 16), written through a sink, read, replayed and indexed on the host
 ARCHIVE_WARPS = 132 * 16
 POLICIES = ("greedy_then_oldest", "round_robin", "oldest_first")
+# the service phases: the simulator phase's warps through the simulation
+# service one request at a time; half of them again as an open-loop Poisson
+# arrival process; 24 SM cells of 8 warps (8 a policy); the archive
+# phase's 2,112 warps through two shard processes, cold and restarted
+SERVICE_OPEN_WARPS = 132 * 32
+SERVICE_SM_CELLS, SERVICE_SM_WARPS = 24, 8
+SERVICE_PROC_WARPS = ARCHIVE_WARPS
 
 
 def phase(name: str, **fields) -> None:
@@ -263,6 +281,223 @@ def grid_b_cells(reqs):
             for c in range(SM_CELLS_B)]
 
 
+def same_results(got, want) -> bool:
+    """Every field of two lists of SimResults equal, but the wall time and
+    the meta (the service annotates its results)."""
+    def fields(r):
+        return (r.mechanism, r.status, r.finished, r.steps, r.fuel_left,
+                r.trace, r.utilization, r.error,
+                *((a.dtype.str, a.shape, a.tobytes())
+                  for a in (r.regs, r.preds, r.mem)))
+    return len(got) == len(want) and all(
+        fields(a) == fields(b) for a, b in zip(got, want))
+
+
+def served(svc, reqs, arrivals=None):
+    """Submit ``reqs`` to a running service one at a time (at ``arrivals``,
+    seconds after the first, when given: an open loop), flush, and wait.
+    Returns the results, each request's latency (sorted) from its
+    submission or, in an open loop, from when it was due, the seconds from
+    the first submission to the last resolution, and how late the
+    generator submitted at worst."""
+    done = [None] * len(reqs)
+    tickets = []
+    t0 = time.monotonic()
+    due = [t0] * len(reqs) if arrivals is None else [t0 + a for a in arrivals]
+    for i, req in enumerate(reqs):
+        delay = due[i] - time.monotonic()
+        if arrivals is not None and delay > 0:
+            time.sleep(delay)
+        ticket = svc.submit(req)
+        ticket._future.add_done_callback(
+            lambda _, i=i: done.__setitem__(i, time.monotonic()))
+        tickets.append(ticket)
+    svc.flush()
+    results = [t.result(600) for t in tickets]
+    deadline = time.monotonic() + 60
+    while None in done and time.monotonic() < deadline:
+        time.sleep(0.001)          # the last callbacks run after result()
+    check(None not in done, "a ticket's resolution was not observed")
+    start = ([t.submitted_at for t in tickets] if arrivals is None
+             else due)
+    lat = sorted(d - s for d, s in zip(done, start))
+    late = max(t.submitted_at - d for t, d in zip(tickets, due)) \
+        if arrivals is not None else 0.0
+    return results, lat, max(done) - t0, late
+
+
+def service_phases(*, run_path, launches, reqs, sim, suite_req, scratch,
+                   SimulationService, nearest_rank, smi) -> dict:
+    """The ``[service]``, ``[service_sm]`` and ``[service_proc]`` phases:
+    the simulation service on the card, every result held to the
+    Simulator's.  Returns their numbers."""
+    numbers = {}
+    want = sim.run_batch(reqs)             # the reference: one K1 launch
+
+    # [service]: closed loop, the SimulationService defaults
+    svc = SimulationService()
+    try:
+        (results, lat, wall, _), _, got = run_path(
+            "service closed loop", lambda: served(svc, reqs),
+            lambda out: {"hanoi_run": svc.stats().native_batches})
+        closed = svc.stats()
+        check(same_results(results, want), "the service's results differ "
+              "from Simulator().run_batch's")
+        rate = len(reqs) / wall
+        # open loop: Poisson arrivals at half the closed loop's rate
+        n_open = SERVICE_OPEN_WARPS
+        gaps = np.random.default_rng(SEED).exponential(2.0 / rate, n_open)
+        arrivals = np.concatenate([[0.0], np.cumsum(gaps[1:])])
+        batches0 = svc.stats().native_batches
+        (open_results, open_lat, open_wall, open_late), _, open_got = \
+            run_path(
+            "service open loop",
+            lambda: served(svc, reqs[:n_open], arrivals),
+            lambda out: {"hanoi_run": svc.stats().native_batches
+                         - batches0})
+        opened = svc.stats()
+        check(same_results(open_results, want[:n_open]), "the open-loop "
+              "service's results differ from Simulator().run_batch's")
+    finally:
+        check(svc.stop() == [], "service threads outlived stop()")
+    numbers["service"] = {
+        "warps": len(reqs), "wall_s": wall, "warps_per_s": rate,
+        "k1_launches": got["hanoi_run"],
+        "native_batches": closed.native_batches,
+        "mean_fill": closed.mean_fill,
+        "flush_size": closed.flush_size,
+        "flush_deadline": closed.flush_deadline,
+        "latency_p50_s": nearest_rank(lat, 0.50),
+        "latency_p99_s": nearest_rank(lat, 0.99),
+        "exec_s": sum(r.wall_time_s for r in results),
+        "open_loop": {
+            "warps": n_open, "offered_warps_per_s": rate / 2,
+            "achieved_warps_per_s": n_open / open_wall,
+            "k1_launches": open_got["hanoi_run"],
+            "native_batches": opened.native_batches - batches0,
+            "latency_p50_s": nearest_rank(open_lat, 0.50),
+            "latency_p99_s": nearest_rank(open_lat, 0.99),
+            "generator_late_max_s": open_late}}
+    phase("service", held_to="Simulator().run_batch, every field",
+          launches=got, open_loop_launches=open_got,
+          **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+             for k, v in numbers["service"].items() if k != "open_loop"},
+          open_loop={k: (f"{v:.4f}" if isinstance(v, float) else v)
+                     for k, v in numbers["service"]["open_loop"].items()},
+          card=repr(smi))
+
+    # [service_sm]: a grid of SM cells through run_sm_grid, sm_torch: one
+    # K1 and one K2 launch a cell
+    cells = [dict(programs=[suite_req(SERVICE_SM_WARPS * c + w)
+                            for w in range(SERVICE_SM_WARPS)],
+                  policy=POLICIES[c * len(POLICIES) // SERVICE_SM_CELLS])
+             for c in range(SERVICE_SM_CELLS)]
+    svc = SimulationService()
+    try:
+        grid, sm_wall, sm_got = run_path(
+            "service_sm run_sm_grid",
+            lambda: svc.run_sm_grid(cells, timeout=600),
+            {"hanoi_run": SERVICE_SM_CELLS, "sm_schedule": SERVICE_SM_CELLS})
+    finally:
+        check(svc.stop() == [], "service_sm threads outlived stop()")
+    fields = ("sm_trace", "cycles", "thread_instructions", "busy_cycles",
+              "issue_stall_cycles", "scoreboard_stall_cycles",
+              "memory_stall_cycles")
+    for cell, sm in zip(cells, grid):
+        ref = sim.run_sm(cell["programs"], policy=cell["policy"])
+        check(sm.mechanism == ref.mechanism == "sm_torch"
+              and all(getattr(sm, f) == getattr(ref, f) for f in fields)
+              and same_results(list(sm.warps), list(ref.warps)),
+              f"service_sm: a {cell['policy']} cell differs from "
+              "Simulator().run_sm's")
+    numbers["service_sm"] = {
+        "cells": len(cells), "warps": len(cells) * SERVICE_SM_WARPS,
+        "wall_s": sm_wall, "cells_per_s": len(cells) / sm_wall,
+        "k1_launches": sm_got["hanoi_run"],
+        "k2_launches": sm_got["sm_schedule"],
+        "cycles": sum(sm.cycles for sm in grid)}
+    phase("service_sm", launches=sm_got,
+          held_to="Simulator().run_sm, sm_trace, cycles and stalls",
+          **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+             for k, v in numbers["service_sm"].items()})
+
+    # [service_proc]: two shard processes with a persistent kernel cache,
+    # cold and restarted; groups form at max_batch and on the final flush,
+    # never on a deadline, so both runs take the same signatures
+    warm_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_warm_", dir=scratch))
+    proc_reqs = reqs[:SERVICE_PROC_WARPS]
+    numbers["service_proc"] = {}
+    try:
+        for label in ("cold", "restarted"):
+            def drive():
+                svc = SimulationService(procs=2, warm_start=str(warm_dir),
+                                        max_wait_s=600.0)
+                t0 = time.perf_counter()
+                svc.start()                    # spawn, warm, ready
+                ready_s = time.perf_counter() - t0
+                try:
+                    first, first_lat, _, _ = served(svc, proc_reqs[:1])
+                    rest, lat, wall, _ = served(svc, proc_reqs[1:])
+                finally:
+                    stragglers = svc.stop(timeout=120)
+                return (first + rest, first_lat[0], lat, ready_s, wall,
+                        svc.stats(), stragglers)
+            out, total_s, got = run_path(f"service_proc {label}", drive, {})
+            results, first_s, lat, ready_s, wall, st, stragglers = out
+            check(not stragglers, f"service_proc: {stragglers} outlived "
+                  "stop()")
+            check(same_results(results, want[:SERVICE_PROC_WARPS]),
+                  f"service_proc {label}: results differ from [service]'s")
+            shard_k1 = sum(dict(sh.launches).get("hanoi_run", 0)
+                           for sh in st.shards)
+            shard_k2 = sum(dict(sh.launches).get("sm_schedule", 0)
+                           for sh in st.shards)
+            check(shard_k1 == st.native_batches + st.warm_signatures
+                  and shard_k2 == 0,
+                  f"service_proc {label}: the shards launched K1 {shard_k1} "
+                  f"and K2 {shard_k2} times for {st.native_batches} "
+                  f"batches and {st.warm_signatures} warmed signatures")
+            launches["hanoi_run"][f"service_proc {label} (shards)"] = \
+                shard_k1
+            if label == "cold":
+                check(st.cache_misses >= 1, "service_proc cold: no miss")
+            else:
+                check(st.warm_signatures >= 1 and st.warm_loaded >= 1
+                      and st.cache_misses == st.warm_retraced == 0,
+                      f"service_proc restarted: {st.warm_signatures} "
+                      f"signatures, {st.warm_loaded} loaded, "
+                      f"{st.warm_retraced} missed at warm time, "
+                      f"{st.cache_misses} serve-time misses")
+            numbers["service_proc"][label] = {
+                "warps": len(results), "start_s": ready_s,
+                "first_ticket_s": first_s, "serve_s": wall,
+                "warps_per_s": (len(results) - 1) / wall,
+                "latency_p50_s": nearest_rank(lat, 0.50),
+                "latency_p99_s": nearest_rank(lat, 0.99),
+                "k1_launches_in_shards": shard_k1,
+                "native_batches": st.native_batches,
+                "cache_hits": st.cache_hits,
+                "cache_misses": st.cache_misses,
+                "cache_disk_hits": st.cache_disk_hits,
+                "cache_trace_time_s": st.cache_trace_time_s,
+                "warm_signatures": st.warm_signatures,
+                "warm_loaded": st.warm_loaded,
+                "warm_retraced": st.warm_retraced,
+                "shards": [{"shard": sh.shard, "pid": sh.pid,
+                            "completed": sh.completed,
+                            "cache_hits": sh.cache_hits,
+                            "cache_misses": sh.cache_misses,
+                            "cache_disk_hits": sh.cache_disk_hits,
+                            "launches": dict(sh.launches)}
+                           for sh in st.shards]}
+            phase("service_proc", run=label, launches_parent=got,
+                  **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                     for k, v in numbers["service_proc"][label].items()})
+    finally:
+        shutil.rmtree(warm_dir, ignore_errors=True)
+    return numbers
+
+
 def k1k2_times(src: Path) -> int:
     """K1's ms at the simulator phase's shape and K2's at grids (a) and
     (b), and the host walls of those three paths, with the package under
@@ -336,6 +571,8 @@ def main() -> int:
     from repro_torch.core.isa import MachineConfig, Op
     from repro_torch.engine import SimRequest, Simulator, as_request
     from repro_torch.engine import RotatingJsonlSink, get_mechanism
+    from repro_torch.core.trace import nearest_rank
+    from repro_torch.service import SimulationService
     from repro_torch.service.planner import plan_dispatch
     from repro_torch.engine.adapters import _batch_arrays, state_results
     from repro_torch.engine.mechanisms import sm_torch
@@ -362,10 +599,12 @@ def main() -> int:
                 "hanoi_run": ops.hanoi_run, "sm_schedule": ops.sm_schedule}
     launches = {name: {} for name in counters}     # kernel -> path -> count
 
-    def run_path(path: str, fn, expect: dict):
+    def run_path(path: str, fn, expect):
         """Drive one main path with every launch count set to 0 just before
-        it; read the counts just after and hold them to ``expect``.
-        Returns (fn's result, wall seconds, the counts)."""
+        it; read the counts just after and hold them to ``expect`` (a dict,
+        or a function of fn's result returning one, for a path whose launch
+        count the run decides: a service's native batches).  Returns (fn's
+        result, wall seconds, the counts)."""
         for c in counters.values():
             c.launches = 0
         torch.cuda.synchronize()
@@ -374,6 +613,8 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = {name: c.launches for name, c in counters.items()}
+        if callable(expect):
+            expect = expect(out)
         for name, n in got.items():
             if n:
                 launches[name][path] = n
@@ -1385,9 +1626,52 @@ def main() -> int:
                       "(cycles, instructions, busy, stalls), each cell",
               **{k: (f"{v:.4f}" if isinstance(v, float) else v)
                  for k, v in archive_numbers["archive_sm"].items()})
+
+        # [replay_service]: the [archive] phase's runs replayed through a
+        # running SimulationService (its defaults: hanoi_torch on the
+        # card), one K1 launch a native batch; the report must be
+        # Replayer()'s, at exactly 0.0
+        rsvc = SimulationService()
+        try:
+            via_service, rs_wall, rs_got = run_path(
+                "replay_service", lambda: Replayer(service=rsvc).replay(runs),
+                lambda out: {"hanoi_run": rsvc.stats().native_batches})
+            rs_stats = rsvc.stats()
+        finally:
+            check(rsvc.stop() == [], "replay_service: service threads "
+                  "outlived stop()")
+
+        def report_rows(rep):
+            return [(r.program, r.archived_mechanism, r.replay_mechanism,
+                     r.discrepancy, r.archived_status, r.replayed_status)
+                    for r in rep.rows]
+        check(via_service.mean_discrepancy() == 0.0
+              and via_service.replayed == replayed.replayed == len(runs)
+              and report_rows(via_service) == report_rows(replayed),
+              f"replay through the service: {via_service.replayed} runs, "
+              f"mean {via_service.mean_discrepancy()}, rows equal "
+              f"{report_rows(via_service) == report_rows(replayed)}")
+        archive_numbers["replay_service"] = {
+            "runs": via_service.replayed, "replay_s": rs_wall,
+            "runs_per_s": via_service.replayed / rs_wall,
+            "replayer_s": replay_s,
+            "native_batches": rs_stats.native_batches,
+            "mean_fill": rs_stats.mean_fill,
+            "mean_discrepancy": via_service.mean_discrepancy()}
+        phase("replay_service", launches=rs_got,
+              held_to="Replayer()'s report, row for row",
+              **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                 for k, v in archive_numbers["replay_service"].items()})
     finally:
         shutil.rmtree(archive_root, ignore_errors=True)
     torch.cuda.empty_cache()
+
+    # 5h. the simulation service on the card ----------------------------------
+    service_numbers = service_phases(
+        run_path=run_path, launches=launches, reqs=reqs, sim=sim,
+        suite_req=suite_req, scratch=scratch,
+        SimulationService=SimulationService, nearest_rank=nearest_rank,
+        smi=smi)
 
     # 6. kernel times at the main paths' shapes ------------------------------
     def attention_times(B, S, H, K, hd, window):
@@ -1568,7 +1852,7 @@ def main() -> int:
          "ptxas": ptxas["hanoi_step"], "checks": k1_checks,
          "layout_checks": k1_layouts,
          "simulator": sim_numbers, "fig9_mean_discrepancy": fig9_mean,
-         "archive": archive_numbers},
+         "archive": archive_numbers, "service": service_numbers},
         {"name": "sm_sched", "route": "cuda",
          "status": "redesigned",
          "source": "src/repro_torch/csrc/sm_sched.cu",

@@ -6,8 +6,7 @@ unless it was built with ``device="cpu"``: ``Replayer()`` self-replays a
 ``hanoi_torch`` archive through kernel K1.  An archived request's
 ``device`` key, which the port's sinks never write, is dropped before the
 replay, so where a replay runs is decided by the Replayer's Simulator
-alone.  Replay through a running simulation service (``service=``) waits
-for the service's port (ROADMAP.md, open items, item 4) and raises.
+alone, or by the running simulation service it is given (``service=``).
 
 The live evaluation (`Simulator.compare`) runs two mechanisms side by side
 and reports the normalized Levenshtein discrepancy between their
@@ -26,7 +25,9 @@ one with the archived trace in the hardware-reference role — so
 
 Replay executes through :meth:`repro_torch.engine.Simulator.run_batch`
 (grouped per mechanism, so signature-homogeneous ``hanoi_torch`` groups take
-the native batch runner: one launch of K1 a group).  The Levenshtein
+the native batch runner: one launch of K1 a group) or, when a running
+:class:`~repro_torch.service.SimulationService` is supplied, through its
+queue — the fleet path.  The Levenshtein
 itself is the bit-parallel Myers implementation in
 :mod:`repro_torch.core.trace`, which is what makes million-warp archives
 tractable.
@@ -278,20 +279,18 @@ class Replayer:
         are grouped per mechanism, so homogeneous ``hanoi_torch`` groups
         take one launch of K1 each.
     service:
-        Replay through a running simulation service is not ported yet
-        (ROADMAP.md, open items, item 4): anything but None raises.
+        A *running* :class:`~repro_torch.service.SimulationService` to
+        replay through instead of the simulator — the queue-fed fleet
+        path, on the service's device.
     """
 
     def __init__(self, mechanism: str | None = None, *,
                  simulator: Simulator | None = None,
                  service: Any = None) -> None:
-        if service is not None:
-            raise NotImplementedError(
-                "Replayer(service=) is not ported to repro_torch yet "
-                "(ROADMAP.md, open items, item 4)")
         self._override = (get_mechanism(mechanism).name
                           if mechanism else None)
         self._sim = simulator or Simulator()
+        self._service = service
 
     def replay(self, source: "str | ArchiveReader | Iterable[ArchivedRun]",
                *, limit: int | None = None) -> ReplayReport:
@@ -335,7 +334,13 @@ class Replayer:
         rows: list[ReplayRow] = []
         for mech, items in by_mech.items():
             reqs = [req for _, _, req in items]
-            results = self._sim.run_batch(reqs, mechanism=mech)
+            if self._service is not None:
+                tickets = [self._service.submit(r, mechanism=mech)
+                           for r in reqs]
+                self._service.flush()
+                results = [t.result() for t in tickets]
+            else:
+                results = self._sim.run_batch(reqs, mechanism=mech)
             for (idx, run, req), res in zip(items, results):
                 archived = trace_tokens(list(run.trace))
                 replayed = trace_tokens(list(res.trace))

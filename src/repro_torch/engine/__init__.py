@@ -23,7 +23,8 @@ registry), :mod:`.adapters` (``hanoi``, ``turing_oracle``, ``simt_stack``,
 ``dualpath`` and ``hanoi_torch``), :mod:`.mechanisms` (``volta_itps``,
 ``sm_interleave`` and ``sm_torch``), :mod:`.sinks` (the
 :class:`TraceSink` consumers and the archive's replay meta),
-:mod:`.simulator` (the :class:`Simulator` façade), :mod:`.compile_cache` (affinity tokens).  The
+:mod:`.simulator` (the :class:`Simulator` façade), :mod:`.compile_cache`
+(affinity tokens, the persistent kernel cache and warm start).  The
 registry is the port's own: nothing is registered into ``repro``'s.
 """
 from repro_torch.core.isa import MachineConfig
@@ -37,16 +38,21 @@ from .sinks import (JsonlSink, MemorySink, RingBufferSink, RotatingJsonlSink,
 from .types import (SimRequest, SimResult, SimStatus, SmResult,
                     classify_status, worst_status)
 from .simulator import CompareReport, CompareRow, Simulator, as_request
+from .compile_cache import (CompileCache, WarmReport, compile_cache_stats,
+                            install_compile_cache, installed_cache,
+                            uninstall_compile_cache)
 from . import adapters as _adapters            # registers the built-ins
 from . import mechanisms as _mechanisms        # registers the plugins
 
 __all__ = [
-    "CompareReport", "CompareRow", "JsonlSink", "MachineConfig",
+    "CompareReport", "CompareRow", "CompileCache", "JsonlSink",
+    "MachineConfig",
     "Mechanism", "MemorySink", "RingBufferSink", "RotatingJsonlSink",
     "SimRequest", "SimResult", "SimStatus", "Simulator", "SmResult",
-    "TraceSink", "as_request",
-    "available_mechanisms", "classify_status", "feed_result",
-    "get_mechanism", "iter_mechanisms", "register_mechanism",
+    "TraceSink", "WarmReport", "as_request",
+    "available_mechanisms", "classify_status", "compile_cache_stats",
+    "feed_result", "get_mechanism", "install_compile_cache",
+    "installed_cache", "iter_mechanisms", "register_mechanism",
     "replay_payload", "run_meta", "sm_run_meta", "timing_meta",
-    "unregister_mechanism", "worst_status",
+    "uninstall_compile_cache", "unregister_mechanism", "worst_status",
 ]

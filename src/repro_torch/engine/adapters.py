@@ -28,10 +28,19 @@ raises.
 Each adapter funnels through :func:`~repro_torch.engine.types.classify_status`,
 so ``SimResult.status`` means the same thing no matter which engine produced
 it.
+
+The kernel cache (:func:`batch_cache_stats`, :func:`reset_batch_caches`,
+:func:`set_batch_cache_capacity`) counts the port's prepared launches as the
+reference counts its compiled executables: one entry a (mechanism, cfg,
+majority_first, batch, pad_len) key, a miss the first launch at a key in
+this process, a disk hit a key whose libraries an installed
+:mod:`~repro_torch.engine.compile_cache` found built.
 """
 from __future__ import annotations
 
+import threading
 import time
+from collections import OrderedDict
 from typing import Sequence
 
 import numpy as np
@@ -45,7 +54,8 @@ from .registry import register_mechanism
 from .types import SimRequest, SimResult, classify_status
 
 __all__ = ["PAD_QUANTUM", "padded_len", "result_from_runresult",
-           "state_results"]
+           "state_results", "batch_cache_stats", "reset_batch_caches",
+           "set_batch_cache_capacity", "prepare_launch"]
 
 
 def result_from_runresult(mechanism: str, r: RunResult, req: SimRequest,
@@ -188,6 +198,181 @@ def _build_kernel(dev, names: Sequence[str] = ("hanoi_step",)
     return time.perf_counter() - t0
 
 
+def _sync(dev) -> None:
+    """Wait for the work queued on this thread's current stream.  Never
+    the whole device: with two service workers each on its own stream, a
+    device-wide synchronize would time one batch's launch into the other's
+    ``wall_time_s``."""
+    if dev.type == "cuda":
+        import torch
+        torch.cuda.current_stream(dev).synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the kernel cache: prepared launches and their counters
+# ---------------------------------------------------------------------------
+
+#: the kernel library each counted mechanism's launch needs: ``hanoi_torch``
+#: (and ``sm_torch``'s warp phase) K1, ``sm_torch``'s scheduler phase K2
+KERNELS = {"hanoi_torch": ("hanoi_step",), "sm_torch": ("sm_sched",)}
+
+
+class _LruDict(OrderedDict):
+    """A bounded mapping with LRU eviction and an eviction counter.
+
+    ``__setitem__`` evicts the least-recently-used entry past ``maxsize``;
+    ``get`` refreshes recency.  Callers serialize access through
+    ``_CACHE_LOCK`` — the class itself is not thread-safe.
+    """
+
+    def __init__(self, maxsize: int):
+        super().__init__()
+        self.maxsize = int(maxsize)
+        self.evictions = 0
+
+    def get(self, key, default=None):
+        try:
+            self.move_to_end(key)
+        except KeyError:
+            return default
+        return super().__getitem__(key)
+
+    def __setitem__(self, key, value):
+        super().__setitem__(key, value)
+        self.move_to_end(key)
+        self.trim()
+
+    def trim(self) -> None:
+        while len(self) > self.maxsize:
+            self.popitem(last=False)
+            self.evictions += 1
+
+
+_CACHE_CAPACITY = 256
+_CACHE_LOCK = threading.Lock()
+# serializes the miss path (a library load can take an nvcc build), so two
+# threads that reach a cold key together count one miss and one hit
+_PREPARE_LOCK = threading.Lock()
+# key -> the kernel libraries its launch uses
+_PREPARED = _LruDict(_CACHE_CAPACITY)
+#: a miss is the first launch at a key in this process (on the card it pays
+#: the library load, which trace_time_s sums, CUDA's lazy load of the
+#: kernel's instance and the caching allocator's first segments at that
+#: shape; on the CPU nothing); a disk hit is a key the installed compile
+#: cache's manifest holds, with its libraries found built on disk
+_STATS = {"hits": 0, "misses": 0, "disk_hits": 0, "trace_time_s": 0.0}
+
+
+def batch_cache_stats() -> dict:
+    """Snapshot of the kernel cache: ``hits``, ``misses`` (first launches
+    at a key in this process, the "re-trace" the warm-start gate asserts to
+    zero), ``disk_hits`` (keys an installed compile cache supplied),
+    ``trace_time_s`` (seconds misses spent loading libraries, ``nvcc``
+    included), ``entries``, ``capacity`` and ``evictions``."""
+    with _CACHE_LOCK:
+        return {**_STATS, "entries": len(_PREPARED),
+                "capacity": _PREPARED.maxsize,
+                "evictions": _PREPARED.evictions}
+
+
+def reset_batch_caches() -> None:
+    """Drop every prepared launch and zero the counters — a process restart
+    for warm-start tests, without respawning the interpreter (the loaded
+    libraries stay loaded)."""
+    with _CACHE_LOCK:
+        _PREPARED.clear()
+        _PREPARED.evictions = 0
+        for k in _STATS:
+            _STATS[k] = 0.0 if k == "trace_time_s" else 0
+
+
+def set_batch_cache_capacity(executables: int | None = None) -> None:
+    """Re-bound the cache of prepared launches (overflow evicts eagerly)."""
+    with _CACHE_LOCK:
+        if executables is not None:
+            _PREPARED.maxsize = int(executables)
+            _PREPARED.trim()
+
+
+def prepare_launch(mechanism: str, cfg, majority_first: bool, batch: int,
+                   pad_len: int, dev) -> float | None:
+    """Account one launch of ``mechanism``'s kernel at the key
+    ``(mechanism, cfg, majority_first, batch, pad_len)`` and make its
+    library ready; returns the seconds a miss spent loading it (the
+    batch's ``compile_time_s``), or None.
+
+    Lookup order, as the reference's executables: in-memory LRU -> the
+    installed compile cache (its manifest holds the key and the library is
+    built on disk: loaded, no ``nvcc``) -> a miss, which loads (and if need
+    be builds) the library and records the key in the installed cache's
+    manifest.  A hit whose key the installed manifest lacks is adopted
+    into it, so a warm start replays it too.
+    """
+    from .compile_cache import installed_cache
+
+    key = (mechanism, cfg, bool(majority_first), int(batch), int(pad_len))
+    names = KERNELS[mechanism]
+    with _CACHE_LOCK:
+        hit = _PREPARED.get(key) is not None
+        if hit:
+            _STATS["hits"] += 1
+    cache = installed_cache()
+    if hit:
+        if cache is not None and not cache.has(*key):
+            cache.store_executable(*key)
+        return None
+    with _PREPARE_LOCK:
+        with _CACHE_LOCK:
+            if _PREPARED.get(key) is not None:     # prepared meanwhile
+                _STATS["hits"] += 1
+                return None
+        if cache is not None and cache.load_executable(*key, device=dev):
+            with _CACHE_LOCK:
+                _STATS["disk_hits"] += 1
+                _PREPARED[key] = names
+            return None
+        compile_s = _build_kernel(dev, names)
+        with _CACHE_LOCK:
+            _STATS["misses"] += 1
+            _STATS["trace_time_s"] += compile_s or 0.0
+            _PREPARED[key] = names
+        if cache is not None:
+            cache.store_executable(*key, compile_s)
+        return compile_s
+
+
+def warm_launch(mechanism: str, cfg, majority_first: bool, batch: int,
+                pad_len: int, dev) -> None:
+    """Prepare the key and launch its kernel once on a dummy operand set of
+    the key's shape (programs of EXITs; for ``sm_torch``, one cell of
+    ``batch`` warps with empty traces under the default issue policy), so
+    the first request at the key pays none of a miss's costs."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    prepare_launch(mechanism, cfg, majority_first, batch, pad_len, dev)
+    if mechanism == "hanoi_torch":
+        req = SimRequest(program=np.full((1, 8), int(Op.EXIT), np.int32),
+                         cfg=cfg)
+        arrays = _batch_arrays([req] * batch, cfg, pad_len)
+        ops.hanoi_run(*(torch.from_numpy(a).to(dev) for a in arrays), cfg,
+                      majority_first=majority_first)
+    else:
+        from .mechanisms.sm import DEFAULT_POLICY
+        from .mechanisms.sm_torch import _latency_tables, \
+            _supported_cycle_cfg
+        from repro_torch.core.timing import TimingConfig
+        lat, is_mem = _latency_tables(_supported_cycle_cfg(TimingConfig()))
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=dev)
+        ops.sm_schedule(zeros(1, batch), zeros(1, batch), zeros(1, pad_len),
+                        zeros(1, 1), zeros(1, 1), lat, is_mem, out_cap=256,
+                        policy=DEFAULT_POLICY)
+    _sync(dev)
+
+
 _POP8 = np.array([bin(i).count("1") for i in range(256)], np.int64)
 
 
@@ -208,9 +393,10 @@ def _run_hanoi_torch_batch(reqs: Sequence[SimRequest], *,
     padding class.
 
     Wall-time accounting: ``wall_time_s`` is execution-only, amortized per
-    request.  K1's first build in the process is measured separately and
-    stamped as ``meta["compile_time_s"]`` on that batch's results; it never
-    inflates latency percentiles.
+    request.  A kernel-cache miss's library load (K1's first build in the
+    process) is measured separately and stamped as
+    ``meta["compile_time_s"]`` on that batch's results; it never inflates
+    latency percentiles.
     """
     import torch
 
@@ -220,16 +406,15 @@ def _run_hanoi_torch_batch(reqs: Sequence[SimRequest], *,
     dev = _device_of(reqs[0])
     L = padded_len(max(int(np.asarray(r.program).shape[0]) for r in reqs))
     arrays = _batch_arrays(reqs, cfg, L)
-    compile_s = _build_kernel(dev)
+    compile_s = prepare_launch("hanoi_torch", cfg, reqs[0].majority_first,
+                               len(reqs), L, dev)
     progs, skips, regs, mems, lanes = (torch.from_numpy(a).to(dev)
                                        for a in arrays)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    _sync(dev)
     t0 = time.perf_counter()
     st = ops.hanoi_run(progs, skips, regs, mems, lanes, cfg,
                        majority_first=reqs[0].majority_first, active0=active0)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    _sync(dev)
     wall = (time.perf_counter() - t0) / max(1, len(reqs))
     meta = None if compile_s is None else {"compile_time_s": compile_s}
     return state_results(reqs, st, wall, meta=meta)

@@ -8,6 +8,11 @@ build happens at first use, from the sources in this package only, into
 ``csrc/*.cuh`` and the flags, so an edited source or header is rebuilt.
 Nothing here runs at import: the CPU tests import every module and have no
 ``nvcc``.
+
+:func:`build` and :func:`load` hold one module lock, so threads of one
+process that reach a kernel first together build it once and load it once.
+Processes that build into the same directory each compile into a temporary
+named by process and thread and publish with ``os.replace``.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -28,6 +34,8 @@ _KERNELS: dict[str, tuple[str, object]] = {}
 # kernel name -> loaded library / nvcc's -Xptxas -v report
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: dict[str, str] = {}
+# build() and load(): reentrant, since load() builds under it
+_LOCK = threading.RLock()
 
 
 def register(name: str, source: str, set_argtypes) -> None:
@@ -63,16 +71,21 @@ def build(names=None) -> dict[str, str]:
     report, kept beside its library for a later run that finds it built (a
     library found without its report is built again); raises if any build
     fails."""
-    names = list(_KERNELS) if names is None else list(names)
+    with _LOCK:
+        return _build_locked(list(_KERNELS) if names is None else list(names))
+
+
+def _build_locked(names: list) -> dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         out = library_path(name)
         log = out.with_suffix(".log")
-        if out.exists() and log.exists():
+        if is_built(name):
             BUILD_LOGS.setdefault(name, log.read_text())
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(
+            f".{os.getpid()}-{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC / _KERNELS[name][0])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -86,7 +99,9 @@ def build(names=None) -> dict[str, str]:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
         else:
             os.replace(tmp, out)
-            out.with_suffix(".log").write_text(log)
+            logtmp = tmp.with_suffix(".logtmp")
+            logtmp.write_text(log)
+            os.replace(logtmp, out.with_suffix(".log"))
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return {n: BUILD_LOGS[n] for n in names}
@@ -95,14 +110,25 @@ def build(names=None) -> dict[str, str]:
 def load(name: str) -> ctypes.CDLL:
     """The named kernel's library, built on first use."""
     lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _KERNELS[name][1](lib)
-        lib.cuda_error_string.argtypes = [ctypes.c_int]
-        lib.cuda_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _KERNELS[name][1](lib)
+            lib.cuda_error_string.argtypes = [ctypes.c_int]
+            lib.cuda_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
     return lib
+
+
+def is_built(name: str) -> bool:
+    """Whether the named kernel's library and its ptxas report are on disk
+    for the current sources (a :func:`load` would run no ``nvcc``)."""
+    out = library_path(name)
+    return out.exists() and out.with_suffix(".log").exists()
 
 
 def cuda_error_string(lib: ctypes.CDLL, err: int) -> str:

@@ -3,9 +3,12 @@
 Dispatch is by the tensor's device: a CPU tensor takes the kernel's plain
 torch version; any other device launches the hand-written kernel or raises.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, so a run
-can show that its main path went through the kernel.
+can show that its main path went through the kernel.  The counts are
+exact when several threads launch (a service's workers).
 """
 from __future__ import annotations
+
+import threading
 
 from ..core import hanoi as _hanoi
 from . import flash_attention as _fa
@@ -27,7 +30,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                          bq=bq, bk=bk)
     out = _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                    bq=bq, bk=bk)
-    flash_attention.launches += 1
+    _count(flash_attention)
     return out
 
 
@@ -39,7 +42,7 @@ def rglru_scan(a, b, *, seg: int = _rg.DEFAULT_SEG):
     if a.device.type == "cpu":
         return _rg.rglru_scan_plain(a, b, seg=seg)
     h = _rg.rglru_scan_cuda(a, b, seg=seg)
-    rglru_scan.launches += 1
+    _count(rglru_scan)
     return h
 
 
@@ -51,7 +54,7 @@ def rwkv6_scan(r, k, v, w, u, *, seg: int = _rw.DEFAULT_SEG):
     if r.device.type == "cpu":
         return _rw.rwkv6_scan_plain(r, k, v, w, u, seg=seg)
     out = _rw.rwkv6_scan_cuda(r, k, v, w, u, seg=seg)
-    rwkv6_scan.launches += 1
+    _count(rwkv6_scan)
     return out
 
 
@@ -67,7 +70,7 @@ def hanoi_run(programs, skips, regs, mems, lanes, cfg, *,
                                       active0=active0)
     st = _hs.hanoi_run_cuda(programs, skips, regs, mems, lanes, cfg,
                             majority_first=majority_first, active0=active0)
-    hanoi_run.launches += 1
+    _count(hanoi_run)
     return st
 
 
@@ -83,8 +86,16 @@ def sm_schedule(warp_map, trace_n, ops, trace_pc, trace_mask, lat, is_mem, *,
                                      out_cap=out_cap, policy=policy)
     out = _sm.sm_schedule_cuda(warp_map, trace_n, ops, trace_pc, trace_mask,
                                lat, is_mem, out_cap=out_cap, policy=policy)
-    sm_schedule.launches += 1
+    _count(sm_schedule)
     return out
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(wrapper) -> None:
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 flash_attention.launches = 0

@@ -13,9 +13,9 @@ report, row for row.  Replays run through ``Simulator(device="cpu")``:
 ``hanoi_torch`` and ``sm_torch`` run their plain twins.  Every comparison
 is equality: traces, counts and discrepancies are integers and ratios of
 the same integers.  The reference's archive cases that go through the
-simulation service use the Simulator's sinks here (the service's port is a
-later item); the machine with the card has no JAX, and there this module
-skips.
+simulation service run through the port's ``SimulationService(device=
+"cpu")``, and some also through the Simulator's sinks; the machine with the
+card has no JAX, and there this module skips.
 """
 import dataclasses
 import io
@@ -68,7 +68,7 @@ def _bench(name, suite=SUITE):
 def _write_archive(tmp_path, mechanisms, *, max_bytes=4096,
                    names=BENCH_NAMES):
     """Run every (bench, mechanism) pair into a rotating archive, one
-    run_batch a mechanism (the port has no simulation service yet)."""
+    run_batch a mechanism."""
     sink = RotatingJsonlSink(str(tmp_path), max_bytes=max_bytes)
     sim = Simulator("hanoi", device="cpu", sink=sink)
     results = [r for m in mechanisms
@@ -296,9 +296,19 @@ def test_replay_requests_carry_the_replayers_device(tmp_path):
     assert report.mean_discrepancy() == self_report.mean_discrepancy() == 0.0
 
 
-def test_replay_through_a_service_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        Replayer(service=object())
+def test_replay_through_a_service_is_not_ported(tmp_path):
+    """Replay through a running service, which once raised naming the
+    ROADMAP's item 4, runs now: its report equals the Simulator's."""
+    from repro_torch.service import SimulationService
+    _write_archive(tmp_path, ["hanoi_torch"])
+    with SimulationService(device="cpu", max_batch=4) as svc:
+        report = Replayer(service=svc).replay(str(tmp_path))
+    want = Replayer(simulator=CPU_SIM).replay(str(tmp_path))
+    assert report.replayed == want.replayed == len(BENCH_NAMES)
+    assert report.mean_discrepancy() == 0.0
+    assert [(r.program, r.replay_mechanism, r.discrepancy)
+            for r in report.rows] == [(r.program, r.replay_mechanism,
+                                       r.discrepancy) for r in want.rows]
 
 
 def test_sm_torch_archive_round_trip_self_replay(tmp_path):
@@ -738,6 +748,103 @@ def test_sm_round_trip_every_mechanism(tmp_path):
         if run.meta["mechanism"] in ("hanoi", "turing_oracle"):
             live = SIM.run(run.request(), mechanism=run.meta["mechanism"])
             assert run.trace == live.trace
+
+
+def test_replay_through_running_service(tmp_path):
+    """The counterpart of ``tests/test_archive.py``'s replay through a
+    running service: a ``hanoi`` + ``simt_stack`` archive replayed through
+    the port's service gives the Simulator's report, and the reference
+    service's discrepancies over the reference's archive."""
+    from repro import service as jservice
+    from repro_torch.service import SimulationService
+    _write_archive(tmp_path / "port", ["hanoi", "simt_stack"])
+    jsink = jengine.RotatingJsonlSink(str(tmp_path / "ref"), max_bytes=4096)
+    jsim = jengine.Simulator("hanoi", sink=jsink)
+    for m in ("hanoi", "simt_stack"):
+        jsim.run_batch([_bench(n, JSUITE) for n in BENCH_NAMES], JCFG,
+                       mechanism=m)
+    jsink.close()
+    sim_report = Replayer(simulator=CPU_SIM).replay(str(tmp_path / "port"))
+    with SimulationService(default_mechanism="hanoi", device="cpu",
+                           max_batch=4, workers=2) as svc:
+        svc_report = Replayer(service=svc).replay(str(tmp_path / "port"))
+    with jservice.SimulationService(default_mechanism="hanoi", max_batch=4,
+                                    workers=2) as jsvc:
+        ref = jarchive.Replayer(service=jsvc).replay(str(tmp_path / "ref"))
+    assert svc_report.replayed == sim_report.replayed == ref.replayed > 0
+    assert [r.discrepancy for r in svc_report.rows] == \
+        [r.discrepancy for r in sim_report.rows] == \
+        [r.discrepancy for r in ref.rows]
+    assert svc_report.mean_discrepancy() == 0.0
+
+
+def test_service_sm_cell_archives_are_replayable(tmp_path):
+    """Service-archived SM-cell warps carry the full replay payload and the
+    cell coordinates (``sm_run_meta``), and self-replay to 0.0."""
+    from repro_torch.service import SimulationService
+    sink = RotatingJsonlSink(str(tmp_path))
+    with SimulationService(default_mechanism="hanoi", device="cpu",
+                           workers=1, archive=sink) as svc:
+        sm = svc.submit_sm(_bench("DIAMOND"), CFG, n_warps=3,
+                           inner="hanoi").result(120)
+    sink.flush()
+    sink.close()
+    runs = ArchiveReader(str(tmp_path)).runs()
+    assert sm.mechanism == "sm_torch"
+    assert len(runs) == sm.n_warps == 3
+    assert all(r.replayable for r in runs)
+    assert [(r.meta["sm_warp"], r.meta["sm_warps"]) for r in runs] == \
+        [(0, 3), (1, 3), (2, 3)]
+    assert len({r.meta["sm_cell"] for r in runs}) == 1
+    assert all("device" not in r.meta for r in runs)
+    report = Replayer(simulator=CPU_SIM).replay(runs)
+    assert report.replayed == 3 and report.mean_discrepancy() == 0.0
+
+
+def test_service_sm_round_trip_every_mechanism(tmp_path):
+    """Service-archived SM cells over a rotated archive — two policies,
+    heterogeneous warps, every single-warp inner — replay to exactly 0.0,
+    group back into their cells, and carry the reference service's
+    traces and timing stamps for the same cells."""
+    from repro import service as jservice
+    from repro_torch.service import SimulationService
+    policies = ("round_robin", "greedy_then_oldest")
+    cells = [dict(programs=[_bench(n) for n in BENCH_NAMES], cfg=CFG,
+                  inner=m, policy=p) for m in SINGLE_WARP for p in policies]
+    sink = RotatingJsonlSink(str(tmp_path), max_bytes=4096)
+    with SimulationService(default_mechanism="hanoi", device="cpu",
+                           workers=2, archive=sink) as svc:
+        grid = svc.run_sm_grid(cells, timeout=600)
+    sink.flush()
+    sink.close()
+    assert len(sink.paths) >= 2
+    runs = ArchiveReader(str(tmp_path)).runs()
+    assert len(runs) == sink.runs_written == len(cells) * len(BENCH_NAMES)
+    assert all(r.replayable for r in runs)
+    report = Replayer(simulator=CPU_SIM).replay(runs)
+    assert report.replayed == len(runs)
+    assert all(r.discrepancy == 0.0 for r in report.rows)
+    assert len(report.by_sm_cell()) == len(cells)
+    assert set(report.by_sm_policy()) == set(policies)
+    assert {r.meta["mechanism"] for r in runs} == set(SINGLE_WARP)
+    ref_names = {"hanoi_torch": "hanoi_jax"}
+    jcells = [dict(programs=[_bench(n, JSUITE) for n in BENCH_NAMES],
+                   cfg=JCFG, inner=ref_names.get(c["inner"], c["inner"]),
+                   policy=c["policy"]) for c in cells]
+    with jservice.SimulationService(default_mechanism="hanoi",
+                                    workers=2) as jsvc:
+        ref = jsvc.run_sm_grid(jcells, timeout=600)
+    by_cell = {}
+    for run in runs:
+        by_cell.setdefault(run.meta["sm_cell"], []).append(run)
+    assert len(by_cell) == len(cells)
+    for sm, r in zip(grid, ref):
+        assert sm.sm_trace == r.sm_trace and sm.cycles == r.cycles
+        assert [w.trace for w in sm.warps] == [w.trace for w in r.warps]
+    stamps = {(run.meta["mechanism"], run.meta["sm_policy"],
+               run.meta["sm_timing"]["cycles"]) for run in runs}
+    assert stamps == {(c["inner"], sm.policy, sm.cycles)
+                      for c, sm in zip(cells, grid)}
 
 
 def test_facade_run_sm_sink_matches_service_archive(tmp_path):

@@ -1045,3 +1045,129 @@ def test_sm_torch_on_card_matches_cpu(cuda):
         assert ref.mechanism == "sm_interleave"
         assert (longest.sm_trace, longest.cycles, longest.stall_breakdown) \
             == (ref.sm_trace, ref.cycles, ref.stall_breakdown)
+
+
+def test_build_load_from_two_threads_builds_once(cuda, tmp_path,
+                                                 monkeypatch):
+    """Two threads that reach a cold ``_build.load`` together run ``nvcc``
+    once, load one library, and leave no temporary behind."""
+    import subprocess
+    import threading
+
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "BUILD_LOGS", {})
+    runs, real = [], subprocess.Popen
+
+    def counting(cmd, *a, **kw):
+        runs.append(cmd)
+        return real(cmd, *a, **kw)
+    monkeypatch.setattr(_build.subprocess, "Popen", counting)
+    barrier = threading.Barrier(2)
+    libs, errors = [None, None], []
+
+    def go(i):
+        barrier.wait()
+        try:
+            libs[i] = _build.load("rglru_scan")
+        except Exception as exc:           # reported below
+            errors.append(exc)
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not errors and libs[0] is not None and libs[0] is libs[1]
+    assert len(runs) == 1
+    assert sorted(p.suffix for p in tmp_path.iterdir()) == [".log", ".so"]
+
+
+def _service_requests(cfg, n):
+    from repro_torch.core.programs import make_suite
+    from repro_torch.engine import SimRequest
+    suite = [b for b in make_suite(cfg) if not b.skip_bsync_pcs]
+    return [SimRequest(program=suite[i % len(suite)].program, cfg=cfg,
+                       init_mem=suite[i % len(suite)].init_mem,
+                       name=f"{suite[i % len(suite)].name}#{i}")
+            for i in range(n)]
+
+
+def _same_result(a, b):
+    assert (a.mechanism, a.status, a.trace, a.steps, a.fuel_left,
+            a.finished, a.utilization, a.error) == \
+        (b.mechanism, b.status, b.trace, b.steps, b.fuel_left, b.finished,
+         b.utilization, b.error)
+    for f in ("regs", "preds", "mem"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+
+
+def test_service_on_card_matches_run_batch(cuda):
+    """``SimulationService()`` with its defaults (``hanoi_torch`` on the
+    card, two workers each on its own stream) returns, for requests
+    submitted one by one, ``Simulator().run_batch``'s results in every
+    field, through K1."""
+    from repro_torch.core.isa import MachineConfig
+    from repro_torch.engine import Simulator
+    from repro_torch.service import SimulationService
+    cfg = MachineConfig(n_threads=32, mem_size=256, max_steps=8192)
+    reqs = _service_requests(cfg, 200)
+    want = Simulator().run_batch(reqs)
+    before = ops.hanoi_run.launches
+    with SimulationService(max_wait_s=600.0) as svc:
+        tickets = [svc.submit(r) for r in reqs]
+        svc.flush()
+        got = [t.result(600) for t in tickets]
+        stats = svc.stats()
+    assert ops.hanoi_run.launches - before == stats.native_batches >= 4
+    assert stats.completed == len(reqs) and stats.failed == 0
+    for a, b in zip(got, want):
+        _same_result(a, b)
+        assert a.meta["service"]["native"] is True
+
+
+def test_service_warm_restart_on_card_takes_no_miss(cuda, tmp_path):
+    """One shard process on the card: a cold service misses and records
+    its signatures; a restarted one loads them (the libraries are built)
+    and launches K1 once a signature before admitting traffic, then serves
+    the same traffic with no miss, bit-equal to the cold run."""
+    from repro_torch.core.isa import MachineConfig
+    from repro_torch.service import SimulationService
+    cfg = MachineConfig(n_threads=32, mem_size=256, max_steps=8192)
+    reqs = _service_requests(cfg, 64)
+    runs = []
+    for _ in range(2):
+        with SimulationService(procs=1, max_wait_s=600.0,
+                               warm_start=str(tmp_path)) as svc:
+            out = svc.run(reqs, timeout=600)
+            runs.append((out, svc.stats()))
+    (cold, st1), (warm, st2) = runs
+    assert st1.cache_misses >= 1
+    assert st2.warm_signatures == st2.warm_loaded >= 1
+    assert st2.cache_misses == st2.warm_retraced == 0
+    assert dict(st2.shards[0].launches)["hanoi_run"] >= \
+        st2.warm_signatures + st2.native_batches
+    for a, b in zip(warm, cold):
+        _same_result(a, b)
+
+
+def test_replay_through_service_on_card(cuda, tmp_path):
+    """A CPU-written archive replayed through ``Replayer(service=)`` on
+    the card: K1 launches, exactly 0.0, the report of ``Replayer()``."""
+    from repro_torch.archive import Replayer
+    from repro_torch.core.isa import MachineConfig
+    from repro_torch.engine import RotatingJsonlSink, Simulator
+    from repro_torch.service import SimulationService
+    cfg = MachineConfig(n_threads=8, mem_size=64, max_steps=8192)
+    sink = RotatingJsonlSink(str(tmp_path))
+    Simulator(device="cpu", sink=sink).run_batch(_service_requests(cfg, 40))
+    sink.close()
+    want = Replayer().replay(str(tmp_path))
+    before = ops.hanoi_run.launches
+    with SimulationService() as svc:
+        got = Replayer(service=svc).replay(str(tmp_path))
+    assert ops.hanoi_run.launches > before
+    assert got.replayed == want.replayed == 40
+    assert got.mean_discrepancy() == 0.0
+    assert [(r.program, r.discrepancy) for r in got.rows] == \
+        [(r.program, r.discrepancy) for r in want.rows]

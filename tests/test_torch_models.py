@@ -61,14 +61,19 @@ def test_port_imports_neither_jax_nor_repro():
         "for n in names: importlib.import_module(n)\n"
         "bad = [n for n in sys.modules\n"
         "       if n.split('.')[0] in ('jax', 'jaxlib', 'repro', 'networkx')]\n"
-        "print(len(names), bad)\n"
+        "print(len(names), bad, *names)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}",
                               "PATH": "/usr/bin:/bin"},
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert int(res.stdout.split()[0]) >= 53, res.stdout
+    assert int(res.stdout.split()[0]) >= 75, res.stdout
+    # the service's modules and its benchmark are among those imported
+    for name in ("service.core", "service.coalescer", "service.procpool",
+                 "engine.compile_cache", "benchmarks.bench_service",
+                 "launch.serve"):
+        assert f"repro_torch.{name}" in res.stdout.split(), name
 
 
 @pytest.mark.parametrize("smoke", [True, False])
@@ -85,15 +90,16 @@ def test_config_and_param_count_equal_jax(smoke):
             == 1_235_814_400
 
 
-def test_unported_parts_say_where_they_stand():
+def test_unported_parts_say_where_they_stand(capsys):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tconfigs.get_config("mixtral-8x7b")
     cfg = tconfigs.get_config("llama3.2-1b", smoke=True)
     with pytest.raises(NotImplementedError, match="moe layers"):
         tmodels.model_struct(cfg.replace(family="moe", n_experts=4,
                                          experts_per_token=2))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tserve.main(["--mode", "sim", "--device", "cpu"])
+    # the serve mode that once raised naming item 5 runs now
+    tserve.main(["--mode", "sim", "--device", "cpu", "--batch", "2"])
+    assert "2 ok / 0 failed" in capsys.readouterr().out
 
 
 def test_init_params_std_rule():

@@ -3,7 +3,7 @@ modules (ISA, assembler, suite, CFG analysis without networkx, trace diff,
 timing), the numpy mechanisms, ``run_warps`` and the suite at 32 threads
 against the JAX engine, and the engine (``Simulator.run_batch`` and
 ``compare`` through ``hanoi_torch`` on the CPU, its wall-time contract, and
-the paths that are not ported yet).
+the paths the service's port made run).
 
 Everything here is integer and bit-exact, so every comparison is equality.
 The machine with the card has no JAX: there this module skips.
@@ -225,21 +225,30 @@ def test_compare_rows_equal_reference():
 
 def test_wall_time_excludes_the_kernel_build(monkeypatch):
     """K1's first build goes into meta["compile_time_s"] of that batch and
-    never into wall_time_s (the reference's wall-time contract)."""
+    never into wall_time_s (the reference's wall-time contract).  The build
+    is paid by a kernel-cache miss: the batch after it, at the same key, is
+    a hit and carries no compile time."""
     import time
     build_s = 0.5
+    adapters.reset_batch_caches()
     monkeypatch.setattr(adapters, "_build_kernel",
-                        lambda dev: (time.sleep(build_s), build_s)[1])
+                        lambda dev, names=("hanoi_step",):
+                        (time.sleep(build_s), build_s)[1])
     progs = [tprograms.fig5_program(), tprograms.fig6_program()]
-    res = Simulator().run_batch(progs, CFG4, mechanism="hanoi_torch",
-                                meta=CPU)
-    for r in res:
-        assert r.meta["compile_time_s"] == build_s
-        assert r.wall_time_s * len(res) < build_s
-    monkeypatch.setattr(adapters, "_build_kernel", lambda dev: None)
-    res = Simulator().run_batch(progs, CFG4, mechanism="hanoi_torch",
-                                meta=CPU)
-    assert all("compile_time_s" not in r.meta for r in res)
+    try:
+        res = Simulator().run_batch(progs, CFG4, mechanism="hanoi_torch",
+                                    meta=CPU)
+        for r in res:
+            assert r.meta["compile_time_s"] == build_s
+            assert r.wall_time_s * len(res) < build_s
+        assert adapters.batch_cache_stats()["trace_time_s"] == build_s
+        monkeypatch.setattr(adapters, "_build_kernel",
+                            lambda dev, names=("hanoi_step",): None)
+        res = Simulator().run_batch(progs, CFG4, mechanism="hanoi_torch",
+                                    meta=CPU)
+        assert all("compile_time_s" not in r.meta for r in res)
+    finally:
+        adapters.reset_batch_caches()
 
 
 def test_result_assembly_copies_only_the_traces(monkeypatch):
@@ -311,23 +320,31 @@ def test_entry_points_need_a_card_unless_given_the_cpu():
             call()
 
 
-def test_unported_paths_raise_naming_the_roadmap():
-    """The simulator paths still waiting for the service's port (replay
-    through a service, the ``sim`` and ``replay`` serve modes) raise and
-    name their ROADMAP.md item; ``verify=``, ``synthesize=`` and ``sink=``
-    are ported and run (``tests/test_torch_analysis.py``,
-    ``tests/test_torch_archive.py``)."""
+def test_unported_paths_raise_naming_the_roadmap(tmp_path, capsys):
+    """The simulator paths that once waited for the service's port and
+    raised naming ROADMAP.md run now: replay through a running service,
+    and the ``sim`` and ``replay`` serve modes (on the CPU when asked);
+    ``verify=``, ``synthesize=`` and ``sink=`` run as before
+    (``tests/test_torch_analysis.py``, ``tests/test_torch_archive.py``)."""
     from repro_torch.archive import Replayer
-    from repro_torch.engine import MemorySink
+    from repro_torch.engine import MemorySink, RotatingJsonlSink
     from repro_torch.launch import serve
-    for call in (lambda: Replayer(service=object()),
-                 lambda: serve.main(["--mode", "sim"]),
-                 lambda: serve.main(["--mode", "replay"])):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    from repro_torch.service import SimulationService
     prog = tprograms.fig5_program()
     sink = MemorySink()
     sim = Simulator(device="cpu", sink=sink, verify="strict")
     sim.run(prog, CFG4, synthesize=True)
     sim.run_sm(prog, CFG4, n_warps=2)
     assert len(sink.runs) == 3
+    archive = RotatingJsonlSink(str(tmp_path))
+    Simulator(device="cpu", sink=archive).run_batch(
+        [prog, tprograms.fig6_program()], CFG4)
+    archive.close()
+    with SimulationService(device="cpu") as svc:
+        report = Replayer(service=svc).replay(str(tmp_path))
+    assert report.replayed == 2 and report.mean_discrepancy() == 0.0
+    serve.main(["--mode", "sim", "--device", "cpu", "--batch", "2"])
+    assert "2 ok / 0 failed" in capsys.readouterr().out
+    serve.main(["--mode", "replay", "--device", "cpu", "--archive-dir",
+                str(tmp_path)])
+    assert "[serve:replay] 2 run(s)" in capsys.readouterr().out
