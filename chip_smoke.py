@@ -32,6 +32,15 @@ main paths at full width, with random weights or data drawn from a seed:
   against the chunked form, and layer 0's time mix with ``use_kernel=True``
   through K5, held against the scan;
 - ``serve`` of 4 requests on each of the three models, in f32;
+- deepseek-moe-16b, whole (28 layers, 16.4 B parameters): a bf16 prefill
+  of 4 x 2048 through K3 (hd 128, 16 heads, 16 kv heads), held against
+  the reference-attention prefill in bf16 and, at 8 layers, in f32; its
+  first MoE layer on the card against the same layer on the CPU (routing,
+  kept slots and dispatch order identical); ``serve`` of 4 requests on
+  its bf16 weights;
+- mixtral-8x7b at full width, 8 of its 32 layers: a bf16 prefill of
+  1 x 8192 through K3 with its 4096-token window, held the same way (in
+  f32 at 4 layers);
 - the simulator: ``Simulator().run_batch`` (its default mechanism,
   ``hanoi_torch``, on the card) over 8,448 simulated warps (one full residency of the card, 132 SMs x 64
   warps; the suite's 23 programs in turn, each warp with its own memory)
@@ -69,7 +78,14 @@ main paths at full width, with random weights or data drawn from a seed:
   through ``run_sm_grid`` (K1 and K2 a cell), each equal to
   ``Simulator().run_sm``'s; 2,112 warps through two shard processes with a
   persistent kernel cache under ``build/``, cold and then restarted, the
-  restarted service taking no kernel-cache miss.
+  restarted service taking no kernel-cache miss;
+- the paper's benchmarks and the quickstart: ``bench_control_flow``'s
+  summary (Fig 9, Fig 10; equal to the numpy ``hanoi``'s) and engine
+  throughput, ``bench_sm``'s ``sm_torch`` gate (every bench and policy
+  bit-equal to ``sm_interleave``; the 10x speedup reported, met or
+  missed), ``bench_timing --smoke``, ``run --engine-api`` and the full
+  ``run`` rows, and ``python -m repro_torch.examples.quickstart``, the
+  last four as subprocesses that must exit 0.
 
 Every kernel's launch count is set to 0 just before each path and read just
 after it; a path that launches a kernel another number of times than it
@@ -94,6 +110,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -153,6 +170,20 @@ POLICIES = ("greedy_then_oldest", "round_robin", "oldest_first")
 SERVICE_OPEN_WARPS = 132 * 32
 SERVICE_SM_CELLS, SERVICE_SM_WARPS = 24, 8
 SERVICE_PROC_WARPS = ARCHIVE_WARPS
+# the MoE models: deepseek-moe-16b whole (16.4 B parameters, 32.8 GB in
+# bf16) at 4 x 2048; mixtral-8x7b (46.7 B, 93 GB in bf16, more than one
+# card) at full width with its depth cut to 8 of 32 layers, at 1 x 8192
+# tokens so that its 4096-token window bites.  An f32 copy of either does
+# not fit beside the bf16 one: the f32 holds run at the cut depths below,
+# each on its own after the bf16 model is freed.
+MIXTRAL_LAYERS = 8
+MIXTRAL_S = 8192
+F32_DEPTH = {"deepseek-moe-16b": 8, "mixtral-8x7b": 4}
+# one MoE layer on the card against the same layer on the CPU, in f32:
+# the largest output difference, relative to the largest output
+MOE_RTOL = 1e-4
+# a capacity factor small enough that the layer drops slots
+MOE_DROP_FACTOR = 0.5
 
 
 def phase(name: str, **fields) -> None:
@@ -324,6 +355,242 @@ def served(svc, reqs, arrivals=None):
     late = max(t.submitted_at - d for t, d in zip(tickets, due)) \
         if arrivals is not None else 0.0
     return results, lat, max(done) - t0, late
+
+
+def cut_depth(cfg, n_layers: int):
+    """``cfg`` at full width with its uniform layer plan cut to
+    ``n_layers``."""
+    (pattern, _), = cfg.layer_plan
+    return cfg.replace(n_layers=n_layers,
+                       layer_plan=((pattern, n_layers),)).validate()
+
+
+def f32_prefill_check(cfg, other_cfg, toks, gen, dev, *, init_params,
+                      model_struct, Transformer, prefill) -> dict:
+    """The last-position logits of ``cfg``'s prefill against
+    ``other_cfg``'s on the same f32 weights: the largest difference, the
+    largest logit, and whether the first is within PREFILL_LOGITS_RTOL."""
+    model = Transformer(cfg, init_params(model_struct(cfg), gen,
+                                         dtype=torch.float32, device=dev))
+    batch = {"tokens": toks % cfg.vocab_size}
+    got = prefill(model, cfg, batch)[0][:, -1].float()
+    want = prefill(model, other_cfg, batch)[0][:, -1].float()
+    err, ref_max = max_err(got, want), want.abs().max().item()
+    rtol = PREFILL_LOGITS_RTOL[torch.float32]
+    return {"err": err, "ref_max": ref_max, "rtol": rtol,
+            "ok": bool(torch.isfinite(got).all()) and err <= rtol * ref_max}
+
+
+def moe_layerwise_hold(model, cfg, ref_cfg, tokens, *, L, segments,
+                       moe_mod) -> dict:
+    """An MoE model's two bf16 prefills, layer by layer: the main path's
+    (``cfg``: flash attention, K3) and the reference attention's
+    (``ref_cfg``), each stream on its own hidden state.  In bf16 the two
+    streams route some tokens to other experts (their hidden states differ
+    by roundings; a top-k choice near a tie flips), so their logits part
+    by more than a dense model's.  Held here instead: each layer's
+    attention through K3 against the reference attention on the main
+    stream's own hidden state (``attn_rel``: the largest difference over
+    the largest reference output).  Reported: the share of tokens whose
+    expert set differs between the streams at each MoE layer, and the two
+    streams' last-position logits."""
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    streams = {"main": L.embed(model.embed, tokens, cfg)}
+    streams["ref"] = streams["main"].clone()
+    cfgs = {"main": cfg, "ref": ref_cfg}
+    attn_rel, flips, layer = [], {}, 0
+    with torch.inference_mode():
+        for seg, layers in zip(segments(cfg), model.segments):
+            for lp in layers:
+                for j, kind in enumerate(seg["pattern"]):
+                    p, experts = getattr(lp, str(j)), {}
+                    for name, x in streams.items():
+                        h = L.rmsnorm(p.ln1, x, cfg.norm_eps)
+                        a, _ = L.attention(p.attn, h, cfg=cfgs[name],
+                                           kind=kind, positions=positions)
+                        if name == "main":
+                            want, _ = L.attention(p.attn, h, cfg=ref_cfg,
+                                                  kind=kind,
+                                                  positions=positions)
+                            attn_rel.append(max_err(a, want)
+                                            / want.abs().max().item())
+                            del want
+                        x = x + a
+                        h2 = L.rmsnorm(p.ln2, x, cfg.norm_eps)
+                        if seg["moe"]:
+                            eidx = moe_mod.route(p.ffn, h2, cfg)[2]
+                            experts[name] = torch.sort(eidx, -1).values
+                            out, _ = moe_mod.moe(p.ffn, h2, cfg)
+                        else:
+                            out = L.mlp(p.ffn, h2)
+                        streams[name] = x + out
+                    if experts:
+                        flips[layer] = (experts["main"] != experts["ref"]) \
+                            .any(-1).float().mean().item()
+                    layer += 1
+        last = {name: L.lm_logits(
+            model.head, model.embed,
+            L.rmsnorm(model.final_norm, x[:, -1:], cfg.norm_eps),
+            cfg)[:, 0].float() for name, x in streams.items()}
+    return {"attn_rel": attn_rel, "flips": flips,
+            "e2e_err": max_err(last["main"], last["ref"]),
+            "e2e_max": last["ref"].abs().max().item()}
+
+
+def moe_layer_check(ffn, cfg, shape, dev, *, Params, moe_mod) -> dict:
+    """One MoE layer (``ffn``, its Params block) on ``dev`` against the same
+    layer on the CPU, in f32.  The router is rounded to multiples of 2^-10
+    and the input drawn from {-1, 0, 1}, so the router logits are exact in
+    f32 whatever the order of their sums, on either device: a difference
+    in routing would be the dispatch's.  Returns the comparison, the
+    dropped share of the slots and both walls."""
+    def tree(p, to):
+        out = {n: t.detach().float().to(to) for n, t in p._parameters.items()}
+        out.update({n: tree(m, to) for n, m in p._modules.items()})
+        return out
+
+    x = torch.randint(-1, 2, shape, generator=torch.Generator()
+                      .manual_seed(SEED)).float()
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        t = tree(ffn, where)
+        t["router"] = torch.round(t["router"] * 1024) / 1024
+        params, xs = Params(t), x.to(where)
+        _, slots, _, eidx, C = moe_mod.dispatch(params, xs, cfg)
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, aux = moe_mod.moe(params, xs, cfg)
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        runs[where.type] = {
+            "wall": time.perf_counter() - t0, "out": out.cpu(),
+            "aux": aux.item(), "eidx": eidx.cpu(), "C": C,
+            "slots": [tuple(a.cpu() for a in g) for g in slots]}
+        del params, t, xs, out
+    card, host = runs[dev.type], runs["cpu"]
+    E, C = cfg.n_experts, host["C"]
+    same = {
+        "eidx": torch.equal(card["eidx"], host["eidx"]),
+        "dest": all(torch.equal(a[0], b[0])
+                    for a, b in zip(card["slots"], host["slots"])),
+        "kept": all(torch.equal(a[0] < E * C, b[0] < E * C)
+                    for a, b in zip(card["slots"], host["slots"])),
+        "src_token": all(torch.equal(a[1], b[1])
+                         for a, b in zip(card["slots"], host["slots"]))}
+    dropped = sum(int((g[0] == E * C).sum()) for g in host["slots"])
+    n_slots = sum(g[0].numel() for g in host["slots"])
+    out_max = host["out"].abs().max().item()
+    return {"same": same, "C": C, "dropped": dropped, "slots": n_slots,
+            "out_err": max_err(card["out"], host["out"]), "out_max": out_max,
+            "aux_err": abs(card["aux"] - host["aux"]),
+            "card_s": card["wall"], "cpu_s": host["wall"]}
+
+
+def subprocess_phase(name: str, args: list, timeout: int) -> str:
+    """Run ``python -m <args>`` from the checkout with its ``src`` on the
+    path; fail unless it exits 0.  Returns its standard output."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    tail = (res.stdout + res.stderr).strip().splitlines()[-12:]
+    phase(name, command=" ".join(args), exit=res.returncode,
+          wall_s=f"{wall:.2f}")
+    for line in tail:
+        print(f"  {line}")
+    check(res.returncode == 0, f"{' '.join(args)} exited {res.returncode}")
+    return res.stdout
+
+
+def bench_phases(*, run_path, get_mechanism, as_request,
+                 plan_dispatch) -> dict:
+    """The port's benchmarks on the card: bench_control_flow's summary and
+    engine throughput and bench_sm's sm_torch gate as main paths (their K1
+    and K2 launches counted), bench_timing's smoke gates, run.py's rows
+    (--engine-api, then the full run) and the quickstart, each as a
+    subprocess.  Returns their numbers."""
+    from repro_torch.benchmarks import bench_control_flow as bcf
+    from repro_torch.benchmarks import bench_sm
+
+    hanoi = get_mechanism("hanoi_torch")
+    groups = len(plan_dispatch(hanoi, [as_request(b, bcf.CFG)
+                                       for b in bcf._suite()]))
+    report, wall, got = run_path(
+        "bench_control_flow summary", bcf.compare_report,
+        {"hanoi_run": groups})
+    summary = bcf.summary(report)
+    host = bcf.compare_report(mechanism="hanoi")
+    same = {"fig9_rows": bcf.trace_discrepancy_rows(report)
+            == bcf.trace_discrepancy_rows(host),
+            "fig10_rows": bcf.ipc_rows(report) == bcf.ipc_rows(host),
+            "summary": summary == bcf.summary(host)}
+    phase("bench_control_flow", table="summary", launches=got,
+          wall_s=f"{wall:.4f}", equal_to_numpy_hanoi=same,
+          executions=summary["executions"],
+          zero_discrepancy=summary["zero_discrepancy"],
+          fig9_avg_pct=f"{summary['avg_discrepancy_pct']:.4f}",
+          fig10_avg_abs_ipc_delta_pct=
+          f"{summary['avg_abs_ipc_delta_pct']:.4f}",
+          bfsd_ipc_gain_pct=f"{summary['bfsd_ipc_gain_pct']:.4f}")
+    check(all(same.values()), f"bench_control_flow on the card differs from "
+          f"the numpy hanoi: {same}")
+    reps = 3
+    thr, _, got = run_path("bench_control_flow engine_throughput",
+                           lambda: bcf.engine_throughput(reps=reps),
+                           {"hanoi_run": reps + 1})
+    phase("bench_control_flow", table="engine_throughput", launches=got,
+          warps=thr["n_warps"],
+          torch_warps_per_s=f"{thr['torch_warps_per_s']:.1f}",
+          numpy_warps_per_s=f"{thr['numpy_warps_per_s']:.1f}",
+          speedup=f"{thr['speedup']:.3f}")
+
+    smoke, wall, got = run_path(
+        "bench_sm sm_torch_smoke", bench_sm.sm_torch_smoke,
+        lambda r: {"hanoi_run": r["sm_torch_batches"],
+                   "sm_schedule": r["sm_torch_batches"]})
+    phase("bench_sm", launches=got, wall_s=f"{wall:.2f}",
+          equality_cells=smoke["equality_cells"],
+          policies=",".join(smoke["policies"]),
+          mismatches=len(smoke["mismatches"]),
+          timed=f"{smoke['cells']} cells x {smoke['n_warps']} warps GTO",
+          t_sm_torch_s=f"{smoke['t_sm_torch_s']:.4f}",
+          t_sm_interleave_s=f"{smoke['t_sm_interleave_s']:.4f}",
+          speedup=f"{smoke['speedup']:.2f}",
+          gate=f">= {smoke['min_speedup']:.0f}x",
+          gate_met=smoke["speedup"] >= smoke["min_speedup"])
+    check(not smoke["mismatches"], f"sm_torch diverged from sm_interleave "
+          f"on {smoke['mismatches']}")
+
+    timing_out = subprocess_phase(
+        "bench_timing", ["repro_torch.benchmarks.bench_timing", "--smoke"],
+        300)
+    check(timing_out.count("[gate]") == 3, "bench_timing: a gate line is "
+          "missing")
+    api = subprocess_phase("run", ["repro_torch.benchmarks.run",
+                                   "--engine-api"], 300)
+    from repro_torch.benchmarks.run import engine_api_smoke
+    want = engine_api_smoke(device="cpu")[0][2]
+    got_api = next(line.split(",", 2)[2] for line in api.splitlines()
+                   if line.startswith("engine_api_smoke,"))
+    check(got_api == want, f"run --engine-api on the card: {got_api!r}, "
+          f"its plain twin: {want!r}")
+    full = subprocess_phase("run", ["repro_torch.benchmarks.run"], 600)
+    names = [line.split(",", 1)[0] for line in full.splitlines()[1:]
+             if "," in line]
+    check(len(names) == 25 and names[0] == "fig9_trace_discrepancy"
+          and names[-1] == "kernel[rwkv6_scan(plain)]",
+          f"run rows: {names}")
+    quick = subprocess_phase("quickstart",
+                             ["repro_torch.examples.quickstart"], 600)
+    check(quick.rstrip().endswith("quickstart OK"), "quickstart's last line")
+    return {"summary": summary, "engine_throughput": thr,
+            "sm_torch_smoke": {k: v for k, v in smoke.items()
+                               if k != "mismatches"},
+            "run_rows": [line for line in full.splitlines()
+                         if "," in line]}
 
 
 def service_phases(*, run_path, launches, reqs, sim, suite_req, scratch,
@@ -587,7 +854,10 @@ def main() -> int:
     from repro_torch.launch.steps import prefill, prefill_config
     from repro_torch.timing import CycleConfig
     from repro_torch.models import Transformer, init_params, model_struct
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import recurrent
+    from repro_torch.models import transformer as tm
     from repro_torch.models.base import Params, tree_map
     from repro_torch.models.layers import embed, rmsnorm
 
@@ -694,6 +964,13 @@ def main() -> int:
     # over 8 heads is hd 320, 4 kv heads, window 1024; the port has no
     # gemma3 config yet, so these are literals)
     hd128_attn, gemma3_attn, gemma3_window = (32, 8, 128), (8, 4, 320), 1024
+    # the MoE models' attention at hd 128: deepseek-moe-16b's full
+    # multi-head (16 heads, 16 kv heads) and mixtral-8x7b's GQA 4:1 with a
+    # 4096-token window at 8192 tokens
+    dcfg, mcfg = get_config("deepseek-moe-16b"), get_config("mixtral-8x7b")
+    mha_attn = (dcfg.n_heads, dcfg.n_kv_heads, dcfg.hd)
+    swa_attn, swa_window = ((mcfg.n_heads, mcfg.n_kv_heads, mcfg.hd),
+                            mcfg.window_size)
     rwkv_heads = (rcfg.d_model // rcfg.rwkv_head_dim, rcfg.rwkv_head_dim)
     errs = {}
     attn_cases = [
@@ -715,6 +992,13 @@ def main() -> int:
          torch.bfloat16),
         ("gemma3_local_ragged_f32", 1, RAGGED_S, *gemma3_attn, True,
          RAGGED_S * 3 // 10, torch.float32),
+        ("deepseek_mha_bf16", B, S, *mha_attn, True, 0, torch.bfloat16),
+        ("deepseek_mha_ragged_f32", 1, RAGGED_S, *mha_attn, True, 0,
+         torch.float32),
+        ("mixtral_swa_bf16", 1, MIXTRAL_S, *swa_attn, True, swa_window,
+         torch.bfloat16),
+        ("mixtral_swa_ragged_f32", 1, RAGGED_S + 2 * 2048 + 500, *swa_attn,
+         True, swa_window, torch.float32),
     ]
     for name, B, S, H, K, hd, causal, window, dtype in attn_cases:
         q, k, v = qkv(B, S, H, K, hd, dtype)
@@ -975,24 +1259,55 @@ def main() -> int:
         logits, _ = prefill(model, cfg, batch)
         return logits[:, -1].float()
 
-    def prefill_phase(arch, cfg, other_cfg, expect, check_dtype):
-        """Warm up, drive the bf16 prefill as a main path, and hold the
-        last-position logits of ``cfg``'s prefill against ``other_cfg``'s
-        on the same weights, in ``check_dtype``.  Returns the model (bf16)
+    def prefill_phase(arch, cfg, other_cfg, expect, check_dtype,
+                      toks=None, layerwise=False, **fields):
+        """Warm up, drive the bf16 prefill of ``toks`` (default: 4 x 2048)
+        as a main path, and hold the last-position logits of ``cfg``'s
+        prefill against ``other_cfg``'s on the same weights, in
+        ``check_dtype``; with ``layerwise``, hold each layer's attention
+        instead (:func:`moe_layerwise_hold`).  Returns the model (bf16)
         and the main path's caches."""
+        toks = tokens if toks is None else toks
         params = init_params(model_struct(cfg), gen, dtype=torch.bfloat16,
                              device=dev)
         model = Transformer(cfg, params)
-        batch = {"tokens": tokens % cfg.vocab_size}
-        prefill(model, cfg, batch)      # warm-up: cuBLAS plans, allocator
+        batch = {"tokens": toks % cfg.vocab_size}
+        # warm-up: cuBLAS plans, allocator
+        warm_last = prefill(model, cfg, batch)[0][:, -1].float()
+        torch.cuda.reset_peak_memory_stats()
         (logits, caches), wall, got = run_path(
             f"{arch} prefill", lambda: prefill(model, cfg, batch), expect)
-        check(logits.shape == (PREFILL_B, PREFILL_S, cfg.vocab_size),
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(logits.shape == (*toks.shape, cfg.vocab_size),
               f"{arch} prefill logits shape {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits[:, -1]).all()),
               f"{arch}: logits not finite")
         last = logits[:, -1].float()
         del logits
+        if layerwise:
+            h = moe_layerwise_hold(model, cfg, other_cfg, batch["tokens"],
+                                   L=layers_mod, segments=tm._segments,
+                                   moe_mod=moe_mod)
+            rtol = PREFILL_LOGITS_RTOL[torch.bfloat16]
+            worst = max(range(len(h["attn_rel"])),
+                        key=h["attn_rel"].__getitem__)
+            phase("prefill", arch=arch, params="bf16", **fields,
+                  tokens="{}x{}".format(*toks.shape), launches=got,
+                  wall_s=f"{wall:.4f}",
+                  tok_per_s=f"{toks.numel() / wall:.1f}",
+                  peak_gb=f"{peak_gb:.2f}", check="layerwise bf16",
+                  attn_max_rel_err=f"{h['attn_rel'][worst]:.3e}",
+                  attn_worst_layer=worst, rtol=rtol,
+                  expert_set_flips={i: f"{f:.4f}" for i, f in
+                                    h["flips"].items()},
+                  e2e_last_logits_max_abs_err=f"{h['e2e_err']:.3e}",
+                  e2e_ref_logits_max_abs=f"{h['e2e_max']:.3e}",
+                  rerun_last_logits_max_abs_err=
+                  f"{max_err(last, warm_last):.3e}")
+            check(h["attn_rel"][worst] <= rtol,
+                  f"{arch} prefill: layer {worst}'s attention differs from "
+                  f"the reference by {h['attn_rel'][worst]} of its largest")
+            return model, caches
         check_model = model
         if check_dtype != torch.bfloat16:
             check_model = Transformer(cfg, tree_map(
@@ -1002,11 +1317,10 @@ def main() -> int:
         del check_model
         err, ref_max = max_err(last, ref_last), ref_last.abs().max().item()
         rtol = PREFILL_LOGITS_RTOL[check_dtype]
-        phase("prefill", arch=arch, params="bf16",
-              tokens=f"{PREFILL_B}x{PREFILL_S}", launches=got,
-              wall_s=f"{wall:.4f}",
-              tok_per_s=f"{PREFILL_B * PREFILL_S / wall:.1f}",
-              check_dtype=str(check_dtype)[6:],
+        phase("prefill", arch=arch, params="bf16", **fields,
+              tokens="{}x{}".format(*toks.shape), launches=got,
+              wall_s=f"{wall:.4f}", tok_per_s=f"{toks.numel() / wall:.1f}",
+              peak_gb=f"{peak_gb:.2f}", check_dtype=str(check_dtype)[6:],
               last_logits_max_abs_err=f"{err:.3e}",
               ref_logits_max_abs=f"{ref_max:.3e}", rtol=rtol)
         check(err <= rtol * ref_max,
@@ -1104,6 +1418,106 @@ def main() -> int:
                     & (gen_tokens < get_config(arch).vocab_size)).all()),
               f"{arch} serve tokens out of the vocabulary")
         torch.cuda.empty_cache()
+
+    # 5a. MoE serving: deepseek-moe-16b whole and mixtral-8x7b at full width,
+    # through K3 at hd 128 (full multi-head; a 4096 window at 8192 tokens) --
+    f32_fields = dict(init_params=init_params, model_struct=model_struct,
+                      Transformer=Transformer, prefill=prefill)
+    arch = "deepseek-moe-16b"
+    cfg = prefill_config(arch, attn_impl="flash")
+    model, caches = prefill_phase(arch, cfg,
+                                  cfg.replace(attn_impl="reference"),
+                                  {"flash_attention": cfg.n_layers},
+                                  torch.bfloat16, layerwise=True,
+                                  layers=f"{cfg.n_layers} of {cfg.n_layers}")
+    check(caches[1]["0"]["k"].shape == (cfg.n_layers - cfg.first_dense_layers,
+                                        PREFILL_B, PREFILL_S,
+                                        cfg.n_kv_heads, cfg.hd),
+          "deepseek prefill cache shape")
+    del caches
+    # [moe]: the first MoE layer (layer 1) at full width, card vs CPU, at
+    # the config's capacity factor and at one small enough to drop slots
+    for factor in (cfg.capacity_factor, MOE_DROP_FACTOR):
+        n = moe_layer_check(
+            getattr(model.segments[1][0], "0").ffn,
+            cfg.replace(capacity_factor=factor),
+            (PREFILL_B, PREFILL_S, cfg.d_model), dev, Params=Params,
+            moe_mod=moe_mod)
+        phase("moe", arch=arch, layer=1, dtype="float32",
+              shape=(PREFILL_B, PREFILL_S, cfg.d_model),
+              experts=f"{cfg.n_experts} top {cfg.experts_per_token} + "
+                      f"{cfg.n_shared_experts} shared",
+              capacity_factor=factor, capacity=n["C"],
+              identical=n["same"], dropped=f"{n['dropped']}/{n['slots']}",
+              dropped_share=f"{n['dropped'] / n['slots']:.4f}",
+              out_max_abs_err=f"{n['out_err']:.3e}",
+              out_max_abs=f"{n['out_max']:.3e}", rtol=MOE_RTOL,
+              aux_abs_err=f"{n['aux_err']:.3e}", card_s=f"{n['card_s']:.4f}",
+              cpu_s=f"{n['cpu_s']:.4f}")
+        check(all(n["same"].values()),
+              f"deepseek MoE layer: routing or dispatch differs card vs CPU "
+              f"{n['same']}")
+        check(n["out_err"] <= MOE_RTOL * n["out_max"]
+              and n["aux_err"] <= MOE_RTOL,
+              f"deepseek MoE layer: card vs CPU out differs by "
+              f"{n['out_err']} (largest {n['out_max']}), aux by "
+              f"{n['aux_err']}")
+    check(n["dropped"] > 0, "the small capacity factor dropped no slot")
+    # [serve]: 4 requests on the bf16 weights (an f32 copy and its caches
+    # do not fit beside them)
+    serve(arch, smoke=False, batch=4, prompt_len=2, gen_len=2, seed=SEED,
+          params=model, device=dev)     # warm-up: cuBLAS plans
+    res, _, got = run_path(f"{arch} serve", lambda: serve(
+        arch, smoke=False, batch=4, prompt_len=16, gen_len=32, seed=SEED,
+        params=model, device=dev), {})
+    gen_tokens = res["generated"]
+    phase("serve", arch=arch, params="bf16", batch=4, prompt_len=16,
+          gen_len=32, shape=gen_tokens.shape, wall_s=f"{res['wall_s']:.4f}",
+          tok_per_s=f"{res['tokens_per_s']:.1f}", launches=got)
+    print(f"  tokens[0]={gen_tokens[0].tolist()}")
+    check(gen_tokens.shape == (4, 32)
+          and bool(((gen_tokens >= 0) & (gen_tokens < cfg.vocab_size)).all()),
+          f"{arch} serve tokens: shape {gen_tokens.shape} or out of the "
+          f"vocabulary")
+    del model
+    torch.cuda.empty_cache()
+
+    def f32_phase(arch, cfg, toks):
+        """The f32 hold of a prefill at the cut depth F32_DEPTH[arch]."""
+        cut = cut_depth(cfg, F32_DEPTH[arch])
+        r = f32_prefill_check(cut.replace(attn_dtype="f32"),
+                              cut.replace(attn_dtype="f32",
+                                          attn_impl="reference"),
+                              toks, gen, dev, **f32_fields)
+        phase("prefill_f32", arch=arch,
+              layers=f"{cut.n_layers} of {cfg.n_layers}",
+              tokens="{}x{}".format(*toks.shape),
+              last_logits_max_abs_err=f"{r['err']:.3e}",
+              ref_logits_max_abs=f"{r['ref_max']:.3e}", rtol=r["rtol"])
+        check(r["ok"], f"{arch} f32 prefill at {cut.n_layers} layers: last "
+              f"logits differ by {r['err']} (largest {r['ref_max']})")
+        torch.cuda.empty_cache()
+
+    f32_phase(arch, cfg, tokens)
+
+    arch = "mixtral-8x7b"
+    full = prefill_config(arch, attn_impl="flash")
+    cfg = cut_depth(full, MIXTRAL_LAYERS)
+    mix_tokens = torch.randint(0, 65536, (1, MIXTRAL_S), generator=gen,
+                               device=dev)
+    model, caches = prefill_phase(arch, cfg,
+                                  cfg.replace(attn_impl="reference"),
+                                  {"flash_attention": cfg.n_layers},
+                                  torch.bfloat16, toks=mix_tokens,
+                                  layerwise=True,
+                                  layers=f"{cfg.n_layers} of {full.n_layers}",
+                                  window=cfg.window_size)
+    check(caches[0]["0"]["k"].shape == (cfg.n_layers, 1, MIXTRAL_S,
+                                        cfg.n_kv_heads, cfg.hd),
+          "mixtral prefill cache shape")
+    del model, caches
+    torch.cuda.empty_cache()
+    f32_phase(arch, full, mix_tokens)
 
     # 5b. the simulator at full size: one launch of K1 through run_batch ----
     sim_cfg = MachineConfig(n_threads=32, mem_size=256, max_steps=60_000)
@@ -1673,6 +2087,11 @@ def main() -> int:
         SimulationService=SimulationService, nearest_rank=nearest_rank,
         smi=smi)
 
+    # 5i. the paper's benchmarks and the quickstart on the card --------------
+    bench_numbers = bench_phases(
+        run_path=run_path, get_mechanism=get_mechanism,
+        as_request=as_request, plan_dispatch=plan_dispatch)
+
     # 6. kernel times at the main paths' shapes ------------------------------
     def attention_times(B, S, H, K, hd, window):
         q, k, v = qkv(B, S, H, K, hd, torch.bfloat16)
@@ -1711,6 +2130,8 @@ def main() -> int:
     attn_hd128 = attention_times(PREFILL_B, PREFILL_S, *hd128_attn, 0)
     attn_gemma3 = attention_times(PREFILL_B, PREFILL_S, *gemma3_attn,
                                   gemma3_window)
+    attn_mha = attention_times(PREFILL_B, PREFILL_S, *mha_attn, 0)
+    attn_swa = attention_times(1, MIXTRAL_S, *swa_attn, swa_window)
 
     # K4 and K5 at the prefill shape, at their default segment length and
     # at the others the kernels take (the sweep the defaults come from)
@@ -1805,7 +2226,11 @@ def main() -> int:
          "hd256": {"max_abs_err": errs["rgemma_bf16"], **attn_rgemma},
          "hd128": {"max_abs_err": errs["hd128_bf16"], **attn_hd128},
          "hd320": {"max_abs_err": errs["gemma3_local_bf16"],
-                   **attn_gemma3}},
+                   **attn_gemma3},
+         "hd128_mha": {"max_abs_err": errs["deepseek_mha_bf16"],
+                       **attn_mha},
+         "hd128_swa": {"max_abs_err": errs["mixtral_swa_bf16"],
+                       **attn_swa}},
         {"name": "rglru_scan", "route": "cuda",
          "status": "redesigned",
          "source": "src/repro_torch/csrc/rglru_scan.cu",
@@ -1852,7 +2277,8 @@ def main() -> int:
          "ptxas": ptxas["hanoi_step"], "checks": k1_checks,
          "layout_checks": k1_layouts,
          "simulator": sim_numbers, "fig9_mean_discrepancy": fig9_mean,
-         "archive": archive_numbers, "service": service_numbers},
+         "archive": archive_numbers, "service": service_numbers,
+         "benchmarks": bench_numbers},
         {"name": "sm_sched", "route": "cuda",
          "status": "redesigned",
          "source": "src/repro_torch/csrc/sm_sched.cu",

@@ -1,16 +1,19 @@
-"""Architecture registry.  The port carries llama3.2-1b, recurrentgemma-2b
-and rwkv6-3b so far; the other seven architectures of the JAX package are
-named so that asking for one says where it stands instead of failing as
-unknown."""
+"""Architecture registry.  The port carries llama3.2-1b, recurrentgemma-2b,
+rwkv6-3b, mixtral-8x7b and deepseek-moe-16b so far; the other five
+architectures of the JAX package are named so that asking for one says
+where it stands instead of failing as unknown."""
 from __future__ import annotations
 
 from repro_torch.models.base import ModelConfig
 
-from . import llama3_2_1b, recurrentgemma_2b, rwkv6_3b
+from . import (deepseek_moe_16b, llama3_2_1b, mixtral_8x7b,
+               recurrentgemma_2b, rwkv6_3b)
 
 _MODULES = {
     "llama3.2-1b": llama3_2_1b,
     "recurrentgemma-2b": recurrentgemma_2b,
+    "mixtral-8x7b": mixtral_8x7b,
+    "deepseek-moe-16b": deepseek_moe_16b,
     "rwkv6-3b": rwkv6_3b,
 }
 
@@ -21,8 +24,6 @@ NOT_PORTED = {
     "minitron-4b": "item 9",
     "internlm2-20b": "item 9",
     "internvl2-2b": "item 9",
-    "mixtral-8x7b": "items 8 and 9",
-    "deepseek-moe-16b": "items 8 and 9",
 }
 
 ARCH_NAMES = tuple(_MODULES)

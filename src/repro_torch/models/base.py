@@ -72,7 +72,8 @@ def init_params(struct, generator: torch.Generator | None,
             std = 0.02 if len(leaf.shape) < 2 else min(0.02, fan_in ** -0.5)
         x = torch.randn(leaf.shape, generator=generator, dtype=torch.float32,
                         device=dev)
-        return (x * std).to(dt)
+        # scaled in place: one f32 copy of the leaf at a time, not two
+        return x.mul_(std).to(dt)
 
     return tree_map(make, struct)
 

@@ -34,5 +34,8 @@ def tensors_from_jax(tree, device=None):
 
 def params_from_jax(tree, cfg: ModelConfig, device=None) -> Transformer:
     """The port's model from the JAX param tree of ``cfg``: stacked
-    ``[L, ...]`` per segment, ``tree["segments"][i]["0"]["attn"]["wq"]``."""
+    ``[L, ...]`` per segment, ``tree["segments"][i]["0"]["attn"]["wq"]``;
+    an MoE segment's ``ffn`` holds ``router``, ``w_gate``, ``w_up``,
+    ``w_down`` and, with shared experts, ``shared`` (deepseek's dense first
+    layer is a segment of its own, with a dense ``ffn``)."""
     return Transformer(cfg, tensors_from_jax(tree, device))

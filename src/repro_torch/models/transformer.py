@@ -6,7 +6,8 @@ holds the stacked ``[repeat, ...]`` params of pattern position ``j``.
 :class:`Transformer` wraps it as modules, one :class:`Params` block per
 layer (a view of its slice, not a copy), and the Python loop over layers
 takes the place of ``lax.scan``.  Dense GLOBAL / LOCAL / SWA, RECURRENT
-(RG-LRU) and RWKV-6 layers are ported; MoE layers are not yet.
+(RG-LRU) and RWKV-6 layers are ported, each with a dense or (in an ``moe``
+segment) a mixture-of-experts FFN.
 """
 from __future__ import annotations
 
@@ -17,12 +18,10 @@ from .base import GLOBAL, RECURRENT, RWKV, ModelConfig, P, Params, tree_map
 from .layers import (attention, attention_cache_struct, attention_struct,
                      embed, embed_struct, head_struct, lm_logits, mlp,
                      mlp_struct, rmsnorm, rmsnorm_struct)
+from .moe import moe, moe_struct
 from .recurrent import (rglru, rglru_state_struct, rglru_struct,
                         rwkv6_channel_mix, rwkv6_state_struct, rwkv6_struct,
                         rwkv6_time_mix)
-
-# layer kind -> the ROADMAP.md item that ports it
-_NOT_PORTED = {"moe": "item 8"}
 
 # ---------------------------------------------------------------------------
 # structure
@@ -38,8 +37,7 @@ def _stack(struct, r: int):
 
 def _segments(cfg: ModelConfig) -> list[dict]:
     """Expand the layer plan into segments with per-position layer kinds and
-    moe-ness.  first_dense_layers (DeepSeek) forces dense FFN at the start.
-    Raises for layer kinds the port does not carry yet."""
+    moe-ness.  first_dense_layers (DeepSeek) forces dense FFN at the start."""
     segs = []
     layer_idx = 0
     for pattern, repeat in cfg.layer_plan:
@@ -58,16 +56,10 @@ def _segments(cfg: ModelConfig) -> list[dict]:
             is_moe = cfg.family == "moe" and layer_idx >= cfg.first_dense_layers
             segs.append({"pattern": pattern, "repeat": repeat, "moe": is_moe})
             layer_idx += repeat * len(pattern)
-    for seg in segs:
-        for kind in seg["pattern"] + (("moe",) if seg["moe"] else ()):
-            if kind in _NOT_PORTED:
-                raise NotImplementedError(
-                    f"{cfg.name}: {kind} layers are not ported yet "
-                    f"(ROADMAP.md, Open items, {_NOT_PORTED[kind]})")
     return segs
 
 
-def _layer_struct(cfg: ModelConfig, kind: str):
+def _layer_struct(cfg: ModelConfig, kind: str, is_moe: bool):
     d = cfg.d_model
     if kind == RWKV:
         s = rwkv6_struct(cfg)
@@ -75,14 +67,15 @@ def _layer_struct(cfg: ModelConfig, kind: str):
                 "ln2": rmsnorm_struct(d), "cm": s["cm"]}
     core = ({"rglru": rglru_struct(cfg)} if kind == RECURRENT
             else {"attn": attention_struct(cfg)})
+    ffn = moe_struct(cfg) if is_moe else mlp_struct(d, cfg.d_ff)
     return {"ln1": rmsnorm_struct(d), **core,
-            "ln2": rmsnorm_struct(d), "ffn": mlp_struct(d, cfg.d_ff)}
+            "ln2": rmsnorm_struct(d), "ffn": ffn}
 
 
 def model_struct(cfg: ModelConfig):
     seg_structs = []
     for seg in _segments(cfg):
-        per_pos = {str(j): _layer_struct(cfg, kind)
+        per_pos = {str(j): _layer_struct(cfg, kind, seg["moe"])
                    for j, kind in enumerate(seg["pattern"])}
         seg_structs.append(_stack(per_pos, seg["repeat"]))
     return {
@@ -132,9 +125,10 @@ class Transformer(nn.Module):
 # forward
 # ---------------------------------------------------------------------------
 
-def _apply_layer(lp, x, *, cfg: ModelConfig, kind: str, positions,
-                 cache=None, cache_pos=None):
-    """One residual block.  Returns (x, new_cache)."""
+def _apply_layer(lp, x, *, cfg: ModelConfig, kind: str, is_moe: bool,
+                 positions, cache=None, cache_pos=None):
+    """One residual block.  Returns (x, new_cache, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(lp.ln1, x, cfg.norm_eps)
     if kind == RWKV:
         out, tm_state = rwkv6_time_mix(
@@ -148,7 +142,7 @@ def _apply_layer(lp, x, *, cfg: ModelConfig, kind: str, positions,
             state=None if cache is None else {"shift": cache["cm_shift"]})
         return x + out2, {"tm_shift": tm_state["shift"],
                           "wkv": tm_state["wkv"],
-                          "cm_shift": cm_state["shift"]}
+                          "cm_shift": cm_state["shift"]}, aux
     if kind == RECURRENT:
         out, new_cache = rglru(lp.rglru, h, cfg=cfg, state=cache)
     else:
@@ -157,7 +151,11 @@ def _apply_layer(lp, x, *, cfg: ModelConfig, kind: str, positions,
                                    cache_pos=cache_pos)
     x = x + out
     h2 = rmsnorm(lp.ln2, x, cfg.norm_eps)
-    return x + mlp(lp.ffn, h2), new_cache
+    if is_moe:
+        out2, aux = moe(lp.ffn, h2, cfg)
+    else:
+        out2 = mlp(lp.ffn, h2)
+    return x + out2, new_cache, aux
 
 
 def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
@@ -173,13 +171,16 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
     caches = [] if return_cache else None
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
     for seg, layers in zip(_segments(cfg), params.segments):
         per_pos = {str(j): [] for j in range(len(seg["pattern"]))}
         for lp in layers:
             for j, kind in enumerate(seg["pattern"]):
-                x, c = _apply_layer(getattr(lp, str(j)), x, cfg=cfg,
-                                    kind=kind, positions=positions)
+                x, c, aux = _apply_layer(getattr(lp, str(j)), x, cfg=cfg,
+                                         kind=kind, is_moe=seg["moe"],
+                                         positions=positions)
+                aux_total = aux_total + aux
                 if return_cache:
                     per_pos[str(j)].append(c)
         if return_cache:
@@ -189,7 +190,7 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
 
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     logits = lm_logits(params.head, params.embed, x, cfg)
-    return logits, torch.zeros((), dtype=torch.float32), caches
+    return logits, aux_total, caches
 
 
 # ---------------------------------------------------------------------------
@@ -202,6 +203,8 @@ def decode_step(params: Transformer, cfg: ModelConfig, caches, tokens,
     (stacked per segment), updated in place; cache_pos: the position.
     Attention writes its ring buffer in place; a recurrent or RWKV layer
     returns new state tensors, which are copied into the stacked cache.
+    The MoE layers' aux loss is dropped, as the JAX package's decode step
+    drops it.
 
     Returns (logits [B, 1, V], caches).
     """
@@ -214,9 +217,9 @@ def decode_step(params: Transformer, cfg: ModelConfig, caches, tokens,
             for j, kind in enumerate(seg["pattern"]):
                 layer_cache = {name: t[r]
                                for name, t in seg_cache[str(j)].items()}
-                x, new_cache = _apply_layer(
+                x, new_cache, _ = _apply_layer(
                     getattr(lp, str(j)), x, cfg=cfg, kind=kind,
-                    positions=positions, cache=layer_cache,
+                    is_moe=seg["moe"], positions=positions, cache=layer_cache,
                     cache_pos=cache_pos)
                 for name, t in new_cache.items():
                     if t is not layer_cache[name]:

@@ -71,6 +71,12 @@ def _qkv(seed, B, S, H, Kh, hd, dtype, device):
     (1, 9, 8, 4, 320, True, 3, torch.bfloat16, 2e-2),
     (1, 450, 8, 4, 320, True, 100, torch.float32, 2e-5),
     (1, 77, 4, 2, 320, False, 0, torch.float32, 2e-5),
+    # the MoE models' hd 128: full multi-head (deepseek-moe-16b), and a
+    # window shorter than the sequence with GQA 4:1 (mixtral-8x7b)
+    (2, 600, 16, 16, 128, True, 0, torch.bfloat16, 2e-2),
+    (1, 300, 4, 4, 128, True, 0, torch.float32, 2e-5),
+    (1, 1200, 8, 2, 128, True, 512, torch.bfloat16, 2e-2),
+    (1, 700, 8, 2, 128, True, 256, torch.float32, 2e-5),
 ])
 def test_cuda_kernel_matches_plain(cuda, B, S, H, Kh, hd, causal, window,
                                    dtype, tol):
@@ -150,6 +156,50 @@ def test_smoke_prefill_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-4,
                                atol=2e-4)
 
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-moe-16b"])
+def test_smoke_moe_model_on_card_matches_cpu(cuda, arch):
+    """The MoE models' prefill through K3 on the card, and one MoE layer's
+    routing and dispatch, against the CPU path (which
+    ``test_torch_moe.py`` holds against JAX)."""
+    from repro_torch.models import moe
+    cfg = get_config(arch, smoke=True)
+    params = init_params(model_struct(cfg), torch.Generator().manual_seed(7),
+                         device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, size=(2, 40)))
+    cpu_model = Transformer(cfg, params)
+    want, want_aux, _ = forward(cpu_model, cfg, {"tokens": toks})
+    gpu_model = Transformer(cfg, tree_map(lambda t: t.to(cuda), params))
+    before = ops.flash_attention.launches
+    got, _ = prefill(gpu_model, cfg.replace(attn_impl="flash"),
+                     {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + cfg.n_layers
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-4,
+                               atol=2e-4)
+
+    # a capacity small enough to drop: the same slots dropped on the card
+    small = cfg.replace(capacity_factor=0.5)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (3, 40, cfg.d_model)).astype(np.float32))
+    seg = cfg.first_dense_layers and 1
+    lp, clp = gpu_model.segments[seg][0], cpu_model.segments[seg][0]
+    _, g_slots, _, g_eidx, _ = moe.dispatch(getattr(lp, "0").ffn, x.to(cuda),
+                                            small)
+    _, c_slots, _, c_eidx, C = moe.dispatch(getattr(clp, "0").ffn, x, small)
+    assert torch.equal(g_eidx.cpu(), c_eidx)
+    for g, c in zip(g_slots, c_slots):
+        assert torch.equal(g[0].cpu(), c[0]) and torch.equal(g[1].cpu(), c[1])
+    assert any(bool((c[0] == cfg.n_experts * C).any()) for c in c_slots)
+    out, _ = moe.moe(getattr(lp, "0").ffn, x.to(cuda), small)
+    want_out, _ = moe.moe(getattr(clp, "0").ffn, x, small)
+    np.testing.assert_allclose(out.cpu().numpy(), want_out.numpy(),
+                               rtol=2e-4, atol=2e-4)
+    # the combine takes no atomics: a second run gives the same bits
+    again, _ = moe.moe(getattr(lp, "0").ffn, x.to(cuda), small)
+    assert torch.equal(out, again)
 
 
 def _randn(gen, shape, device):
