@@ -11,7 +11,8 @@ RG-LRU scan K4, the RWKV-6 scan K5) and reports each kernel's ptxas
 registers and spills; shows that K3's bf16 kernel runs on the
 tensor cores (its HMMA instructions, and no register spills); holds each
 kernel against its plain PyTorch version on the card (K3 at hd 64, 128, 256
-and 320, in bf16 and f32; K4 and K5, split over time, against twins that
+and 320, in bf16 and f32, with GQA groups of 1 to 10, windowed or not; K4
+and K5, split over time, against twins that
 walk the same segments: K4's h and K5's s_last bit for bit, also at a
 length of many resident waves, and the same bits from two launches; K1
 against its plain twin bit for bit in every field of the simulator's
@@ -41,6 +42,20 @@ main paths at full width, with random weights or data drawn from a seed:
 - mixtral-8x7b at full width, 8 of its 32 layers: a bf16 prefill of
   1 x 8192 through K3 with its 4096-token window, held the same way (in
   f32 at 4 layers);
+- gemma3-4b, minitron-4b, internlm2-20b (19.9 B parameters), internvl2-2b
+  and hubert-xlarge, each whole at full width on bf16 weights drawn on the
+  card one leaf at a time: a prefill of 4 x 2048 positions from the
+  port's ``synthetic_batch`` (internvl2-2b: 256 patches, then 1,792
+  tokens; hubert-xlarge: 2,048 f32 frames, so its layers run in f32),
+  through K3 (hd 320 with and without gemma3's 1024 window; hd 128 at GQA
+  3:1, 6:1 and 2:1) but in hubert's non-causal encoder, the decoders held
+  against the reference attention layer by layer in bf16 and end to end
+  in f32 (internlm2-20b at 8 of its 48 layers); each cut to its first layers
+  (gemma3-4b: one whole 5-local-1-global pattern) in f32 at 1 x 512 on the
+  card against the CPU; ``serve`` of 4 requests on gemma3-4b and
+  minitron-4b in f32 and internlm2-20b on its bf16 weights; ``serve``
+  refusing hubert-xlarge and internvl2-2b; and ``python -m
+  repro_torch.examples.serve_lm`` as a subprocess that must exit 0;
 - the simulator: ``Simulator().run_batch`` (its default mechanism,
   ``hanoi_torch``, on the card) over 8,448 simulated warps (one full residency of the card, 132 SMs x 64
   warps; the suite's 23 programs in turn, each warp with its own memory)
@@ -175,15 +190,32 @@ SERVICE_PROC_WARPS = ARCHIVE_WARPS
 # card) at full width with its depth cut to 8 of 32 layers, at 1 x 8192
 # tokens so that its 4096-token window bites.  An f32 copy of either does
 # not fit beside the bf16 one: the f32 holds run at the cut depths below,
-# each on its own after the bf16 model is freed.
+# each on its own after the bf16 model is freed.  internlm2-20b's f32
+# hold (config_phases) cuts its own weights, beside its bf16 model.
 MIXTRAL_LAYERS = 8
 MIXTRAL_S = 8192
-F32_DEPTH = {"deepseek-moe-16b": 8, "mixtral-8x7b": 4}
+F32_DEPTH = {"deepseek-moe-16b": 8, "mixtral-8x7b": 4, "internlm2-20b": 8}
 # one MoE layer on the card against the same layer on the CPU, in f32:
 # the largest output difference, relative to the largest output
 MOE_RTOL = 1e-4
 # a capacity factor small enough that the layer drops slots
 MOE_DROP_FACTOR = 0.5
+# the other configs, whole at full width: four token decoders through K3
+# (hd 320 local and global; hd 128 at GQA 3:1, 6:1 and 2:1, internvl2-2b
+# with 256 patches ahead of 1,792 tokens) and hubert-xlarge's non-causal
+# encoder, which launches no K3 in either package.  The decoders are
+# held as the MoE models are: in bf16 layer by layer (their 24 to 48
+# layers' roundings take the two attention paths' last logits 4-14% apart,
+# while each path stays as close to the f32 logits as the other), and end
+# to end in f32 on the same weights, whole where an f32 copy fits beside
+# the bf16 one (internlm2-20b's 79.4 GB does not: its first F32_DEPTH
+# layers).  Each model is also cut to its first CUT_LAYERS layers
+# (gemma3-4b to one whole pattern, so that a global layer is among them),
+# and that cut runs CUT_S positions in f32 on the card against the CPU:
+# the largest last-logit difference relative to the largest logit.
+CONFIG_ARCHS = ("gemma3-4b", "minitron-4b", "internlm2-20b", "internvl2-2b",
+                "hubert-xlarge")
+CUT_LAYERS, CUT_S, CARD_CPU_RTOL = 2, 512, 1e-4
 
 
 def phase(name: str, **fields) -> None:
@@ -381,27 +413,28 @@ def f32_prefill_check(cfg, other_cfg, toks, gen, dev, *, init_params,
             "ok": bool(torch.isfinite(got).all()) and err <= rtol * ref_max}
 
 
-def moe_layerwise_hold(model, cfg, ref_cfg, tokens, *, L, segments,
-                       moe_mod) -> dict:
-    """An MoE model's two bf16 prefills, layer by layer: the main path's
-    (``cfg``: flash attention, K3) and the reference attention's
+def layerwise_hold(model, cfg, ref_cfg, batch, *, L, tm, moe_mod) -> dict:
+    """A model's two bf16 prefills of ``batch``, layer by layer: the main
+    path's (``cfg``: flash attention, K3) and the reference attention's
     (``ref_cfg``), each stream on its own hidden state.  In bf16 the two
-    streams route some tokens to other experts (their hidden states differ
-    by roundings; a top-k choice near a tie flips), so their logits part
-    by more than a dense model's.  Held here instead: each layer's
+    streams' hidden states differ by roundings that compound over the
+    layers, and an MoE model routes some tokens to other experts (a top-k
+    choice near a tie flips), so the logits of a deep or an MoE model part
+    by more than a 16-layer dense model's.  Held here instead: each layer's
     attention through K3 against the reference attention on the main
     stream's own hidden state (``attn_rel``: the largest difference over
     the largest reference output).  Reported: the share of tokens whose
     expert set differs between the streams at each MoE layer, and the two
     streams' last-position logits."""
-    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                             device=tokens.device)
-    streams = {"main": L.embed(model.embed, tokens, cfg)}
-    streams["ref"] = streams["main"].clone()
     cfgs = {"main": cfg, "ref": ref_cfg}
     attn_rel, flips, layer = [], {}, 0
     with torch.inference_mode():
-        for seg, layers in zip(segments(cfg), model.segments):
+        streams = {"main": tm._embed(model, cfg, batch)}
+        streams["ref"] = streams["main"].clone()
+        positions = torch.arange(streams["main"].shape[1],
+                                 dtype=torch.int32,
+                                 device=streams["main"].device)
+        for seg, layers in zip(tm._segments(cfg), model.segments):
             for lp in layers:
                 for j, kind in enumerate(seg["pattern"]):
                     p, experts = getattr(lp, str(j)), {}
@@ -486,6 +519,186 @@ def moe_layer_check(ffn, cfg, shape, dev, *, Params, moe_mod) -> dict:
             "out_err": max_err(card["out"], host["out"]), "out_max": out_max,
             "aux_err": abs(card["aux"] - host["aux"]),
             "card_s": card["wall"], "cpu_s": host["wall"]}
+
+
+def cut_params(cfg, params, n_layers: int, device):
+    """``cfg`` and its ``params`` cut to the first ``n_layers`` layers, a
+    whole number of repeats of the plan's first pattern, in f32 on
+    ``device``."""
+    from repro_torch.models.base import tree_map
+
+    pattern, _ = cfg.layer_plan[0]
+    r = n_layers // len(pattern)
+    cut = cfg.replace(n_layers=r * len(pattern), layer_plan=((pattern, r),),
+                      attn_dtype="f32").validate()
+    f32 = lambda t: t.float().to(device)     # noqa: E731
+    return cut, {"embed": tree_map(f32, params["embed"]),
+                 "segments": [tree_map(lambda t: f32(t[:r]),
+                                       params["segments"][0])],
+                 "final_norm": tree_map(f32, params["final_norm"]),
+                 "head": tree_map(f32, params["head"])}
+
+
+def config_phases(*, prefill_phase, run_path, dev, gen) -> dict:
+    """The configs of CONFIG_ARCHS on the card: each whole at full width, a
+    bf16 prefill of 4 x 2048 positions from ``synthetic_batch`` as a main
+    path (its K3 launches counted; the decoders held against the
+    reference attention layer by layer in bf16 and end to end in f32),
+    the peak while its weights are drawn one leaf at a time and while it
+    prefills, its cut in f32 on the card against the CPU; then ``serve``
+    of the token decoders (internlm2-20b on its bf16 weights), ``serve``
+    refusing the frontend models, and the ``serve_lm`` example.  Returns
+    their numbers."""
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import prefill, prefill_config
+    from repro_torch.models import Transformer, init_params, model_struct
+    from repro_torch.models.base import tree_map
+
+    def inputs(batch, where):
+        return {k: torch.from_numpy(batch[k]).to(where)
+                for k in ("tokens", "frames", "patches") if k in batch}
+
+    def last(model, cfg, batch):
+        return prefill(model, cfg, batch)[0][:, -1].float()
+
+    def rel(got, want):
+        return max_err(got, want) / want.abs().max().item()
+
+    def f32_hold(arch, cfg, params, model, batch) -> float:
+        """[prefill_f32]: K3 (f32) against the reference attention on the
+        weights in f32, and, whole, both bf16 paths against those f32
+        logits."""
+        depth = min(F32_DEPTH.get(arch, cfg.n_layers), cfg.n_layers)
+        if depth < cfg.n_layers:
+            cut, p32 = cut_params(cfg, params, depth, dev)
+        else:
+            cut = cfg.replace(attn_dtype="f32")
+            p32 = tree_map(lambda t: t.float(), params)
+        m32 = Transformer(cut, p32)
+        ref32 = last(m32, cut.replace(attn_impl="reference"), batch)
+        r = {"err": rel(last(m32, cut, batch), ref32),
+             "ref_max": ref32.abs().max().item()}
+        del m32, p32
+        fields = {}
+        if depth == cfg.n_layers:
+            for name, c in (("k3", cfg),
+                            ("reference", cfg.replace(attn_impl="reference"))):
+                fields[f"bf16_{name}_vs_f32"] = \
+                    f"{rel(last(model, c, batch), ref32):.3e}"
+        rtol = PREFILL_LOGITS_RTOL[torch.float32]
+        phase("prefill_f32", arch=arch,
+              layers=f"{cut.n_layers} of {cfg.n_layers}",
+              tokens="{}x{}".format(PREFILL_B, PREFILL_S),
+              last_logits_max_rel_err=f"{r['err']:.3e}",
+              ref_logits_max_abs=f"{r['ref_max']:.3e}", rtol=rtol, **fields)
+        check(r["err"] <= rtol, f"{arch} f32 prefill at {cut.n_layers} "
+              f"layers: last logits differ by {r['err']} of the largest")
+        torch.cuda.empty_cache()
+        return r["err"]
+
+    numbers = {}
+    for arch in CONFIG_ARCHS:
+        cfg = prefill_config(arch, attn_impl="flash")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(model_struct(cfg), gen, dtype=torch.bfloat16,
+                             device=dev)
+        draw_gb = torch.cuda.max_memory_allocated() / 1e9
+        batch = inputs(synthetic_batch(cfg, PREFILL_B, PREFILL_S), dev)
+        model, caches = prefill_phase(
+            arch, cfg, cfg.replace(attn_impl="reference") if cfg.causal
+            else None, {"flash_attention": cfg.n_layers} if cfg.causal
+            else {}, torch.bfloat16, batch=batch, params=params,
+            layerwise=cfg.causal, layers=f"{cfg.n_layers} of {cfg.n_layers}",
+            draw_peak_gb=f"{draw_gb:.2f}")
+        check((caches is None) == (not cfg.is_decoder),
+              f"{arch} prefill caches: {caches is None}")
+        del caches
+        numbers[arch] = {"draw_peak_gb": draw_gb}
+        if cfg.causal:
+            numbers[arch]["f32_rel_err"] = f32_hold(arch, cfg, params, model,
+                                                    batch)
+        del batch
+
+        # [prefill_card_vs_cpu]: the same weights cut, f32, 1 x CUT_S
+        cut, cut_p = cut_params(cfg, params, max(CUT_LAYERS,
+                                                 len(cfg.layer_plan[0][0])),
+                                torch.device("cpu"))
+        small = synthetic_batch(cut, 1, CUT_S)
+        lasts, walls = {}, {}
+        for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            m = Transformer(cut, tree_map(lambda t: t.to(where), cut_p))
+            t0 = time.perf_counter()
+            logits = prefill(m, cut, inputs(small, where))[0]
+            torch.cuda.synchronize()
+            walls[key] = time.perf_counter() - t0
+            lasts[key] = logits[:, -1].float().cpu()
+            del m, logits
+        del cut_p
+        err = max_err(lasts["card"], lasts["cpu"])
+        ref_max = lasts["cpu"].abs().max().item()
+        phase("prefill_card_vs_cpu", arch=arch,
+              layers=f"{cut.n_layers} of {cfg.n_layers}", dtype="float32",
+              tokens=f"1x{CUT_S}", last_logits_max_abs_err=f"{err:.3e}",
+              ref_logits_max_abs=f"{ref_max:.3e}", rtol=CARD_CPU_RTOL,
+              card_s=f"{walls['card']:.4f}", cpu_s=f"{walls['cpu']:.4f}")
+        check(bool(torch.isfinite(lasts["card"]).all())
+              and err <= CARD_CPU_RTOL * ref_max,
+              f"{arch} cut to {cut.n_layers} layers, f32: card vs CPU last "
+              f"logits differ by {err} (largest {ref_max})")
+        numbers[arch]["card_vs_cpu_rel_err"] = err / ref_max
+
+        if arch == "internlm2-20b":
+            # [serve] on the bf16 weights: 79.4 GB in f32 does not fit
+            numbers[arch]["serve_tok_per_s"] = serve_phase(
+                arch, run_path, dev, model=model)
+        del model, params
+        torch.cuda.empty_cache()
+
+    for arch in ("gemma3-4b", "minitron-4b"):
+        numbers[arch]["serve_tok_per_s"] = serve_phase(arch, run_path, dev)
+        torch.cuda.empty_cache()
+
+    for arch in ("hubert-xlarge", "internvl2-2b"):
+        try:
+            serve(arch, smoke=False, batch=4, prompt_len=16, gen_len=32,
+                  seed=SEED, device=dev)
+            refused = ""
+        except AssertionError as e:
+            refused = str(e)
+        phase("serve", arch=arch, refused=repr(refused))
+        check("not a token decoder" in refused,
+              f"serve did not refuse {arch}")
+
+    subprocess_phase("serve_lm", ["repro_torch.examples.serve_lm"], 600)
+    return numbers
+
+
+def serve_phase(arch, run_path, dev, model=None) -> float:
+    """A full-width ``serve`` of 4 requests (16 prompt tokens, 32 made) as
+    a main path, after a short one that warms cuBLAS's plans: on
+    ``model``'s bf16 weights when given, else on f32 weights drawn from
+    SEED.  Prints its numbers, checks its tokens, returns its tokens/s."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+
+    kw = dict(smoke=False, batch=4, seed=SEED, params=model, device=dev)
+    serve(arch, prompt_len=2, gen_len=2, **kw)
+    res, _, got = run_path(f"{arch} serve", lambda: serve(
+        arch, prompt_len=16, gen_len=32, **kw), {})
+    gen_tokens = res["generated"]
+    phase("serve", arch=arch, params="f32" if model is None else "bf16",
+          batch=4, prompt_len=16, gen_len=32, shape=gen_tokens.shape,
+          wall_s=f"{res['wall_s']:.4f}",
+          tok_per_s=f"{res['tokens_per_s']:.1f}", launches=got)
+    print(f"  tokens[0]={gen_tokens[0].tolist()}")
+    vocab = get_config(arch).vocab_size
+    check(gen_tokens.shape == (4, 32)
+          and bool(((gen_tokens >= 0) & (gen_tokens < vocab)).all()),
+          f"{arch} serve tokens: shape {gen_tokens.shape} or out of the "
+          f"vocabulary")
+    return res["tokens_per_s"]
 
 
 def subprocess_phase(name: str, args: list, timeout: int) -> str:
@@ -850,7 +1063,6 @@ def main() -> int:
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import rwkv6_scan as rw
     from repro_torch.kernels import sm_sched
-    from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import prefill, prefill_config
     from repro_torch.timing import CycleConfig
     from repro_torch.models import Transformer, init_params, model_struct
@@ -959,11 +1171,18 @@ def main() -> int:
     B, S = PREFILL_B, PREFILL_S
     llama_attn = (lcfg.n_heads, lcfg.n_kv_heads, lcfg.hd)
     rgemma_attn = (gcfg.n_heads, gcfg.n_kv_heads, gcfg.hd)
-    # K3's other head dims, not yet on a ported model's path: hd 128 with
-    # GQA 4:1 (llama3-8b's 32/8 heads), and gemma3-4b's local layers (d 2560
-    # over 8 heads is hd 320, 4 kv heads, window 1024; the port has no
-    # gemma3 config yet, so these are literals)
-    hd128_attn, gemma3_attn, gemma3_window = (32, 8, 128), (8, 4, 320), 1024
+    # hd 128 with GQA 4:1 (llama3-8b's 32/8 heads: no config of the repo
+    # has it), and gemma3-4b's layers (d 2560 over 8 heads is hd 320, 4 kv
+    # heads; window 1024 on its local layers, none on its global ones)
+    hd128_attn = (32, 8, 128)
+    g3cfg = get_config("gemma3-4b")
+    gemma3_attn, gemma3_window = ((g3cfg.n_heads, g3cfg.n_kv_heads,
+                                   g3cfg.hd), g3cfg.window_size)
+    # hd 128 at GQA 6:1, 3:1 and 2:1: internlm2-20b, minitron-4b and
+    # internvl2-2b
+    gqa_attn = {arch: (c.n_heads, c.n_kv_heads, c.hd) for arch, c in (
+        (a, get_config(a)) for a in ("internlm2-20b", "minitron-4b",
+                                     "internvl2-2b"))}
     # the MoE models' attention at hd 128: deepseek-moe-16b's full
     # multi-head (16 heads, 16 kv heads) and mixtral-8x7b's GQA 4:1 with a
     # 4096-token window at 8192 tokens
@@ -988,6 +1207,7 @@ def main() -> int:
          torch.float32),
         ("gemma3_local_bf16", B, S, *gemma3_attn, True, gemma3_window,
          torch.bfloat16),
+        ("gemma3_global_bf16", B, S, *gemma3_attn, True, 0, torch.bfloat16),
         ("gemma3_global_ragged_bf16", 2, RAGGED_S, *gemma3_attn, True, 0,
          torch.bfloat16),
         ("gemma3_local_ragged_f32", 1, RAGGED_S, *gemma3_attn, True,
@@ -999,6 +1219,10 @@ def main() -> int:
          torch.bfloat16),
         ("mixtral_swa_ragged_f32", 1, RAGGED_S + 2 * 2048 + 500, *swa_attn,
          True, swa_window, torch.float32),
+        *((f"{arch}_bf16", B, S, *attn, True, 0, torch.bfloat16)
+          for arch, attn in gqa_attn.items()),
+        ("internlm2-20b_ragged_f32", 1, RAGGED_S, *gqa_attn["internlm2-20b"],
+         True, 0, torch.float32),
     ]
     for name, B, S, H, K, hd, causal, window, dtype in attn_cases:
         q, k, v = qkv(B, S, H, K, hd, dtype)
@@ -1260,42 +1484,57 @@ def main() -> int:
         return logits[:, -1].float()
 
     def prefill_phase(arch, cfg, other_cfg, expect, check_dtype,
-                      toks=None, layerwise=False, **fields):
-        """Warm up, drive the bf16 prefill of ``toks`` (default: 4 x 2048)
-        as a main path, and hold the last-position logits of ``cfg``'s
-        prefill against ``other_cfg``'s on the same weights, in
-        ``check_dtype``; with ``layerwise``, hold each layer's attention
-        instead (:func:`moe_layerwise_hold`).  Returns the model (bf16)
-        and the main path's caches."""
-        toks = tokens if toks is None else toks
-        params = init_params(model_struct(cfg), gen, dtype=torch.bfloat16,
-                             device=dev)
+                      toks=None, batch=None, params=None, layerwise=False,
+                      **fields):
+        """Warm up, drive the bf16 prefill of ``batch`` (default: the
+        tokens ``toks``, default 4 x 2048) as a main path, and hold the
+        last-position logits of ``cfg``'s prefill against ``other_cfg``'s
+        on the same weights, in ``check_dtype`` (``other_cfg`` None: no
+        hold); with ``layerwise``, hold each layer's attention instead
+        (:func:`layerwise_hold`).  ``params`` defaults to bf16 weights
+        drawn here.  Returns the model and the main path's caches."""
+        if batch is None:
+            toks = tokens if toks is None else toks
+            batch = {"tokens": toks % cfg.vocab_size}
+        if params is None:
+            params = init_params(model_struct(cfg), gen,
+                                 dtype=torch.bfloat16, device=dev)
         model = Transformer(cfg, params)
-        batch = {"tokens": toks % cfg.vocab_size}
+        # positions: the frames, or the patches and then the tokens
+        n_batch = next(iter(batch.values())).shape[0]
+        n_pos = sum(batch[k].shape[1] for k in ("frames", "patches",
+                                                "tokens") if k in batch)
         # warm-up: cuBLAS plans, allocator
         warm_last = prefill(model, cfg, batch)[0][:, -1].float()
         torch.cuda.reset_peak_memory_stats()
         (logits, caches), wall, got = run_path(
             f"{arch} prefill", lambda: prefill(model, cfg, batch), expect)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        check(logits.shape == (*toks.shape, cfg.vocab_size),
+        check(logits.shape == (n_batch, n_pos, cfg.vocab_size),
               f"{arch} prefill logits shape {tuple(logits.shape)}")
         check(bool(torch.isfinite(logits[:, -1]).all()),
               f"{arch}: logits not finite")
         last = logits[:, -1].float()
+        fields.update(tokens=f"{n_batch}x{n_pos}", launches=got,
+                      wall_s=f"{wall:.4f}",
+                      tok_per_s=f"{n_batch * n_pos / wall:.1f}",
+                      peak_gb=f"{peak_gb:.2f}",
+                      activations=str(logits.dtype)[6:])
         del logits
+        if other_cfg is None:
+            phase("prefill", arch=arch, params="bf16", **fields,
+                  check="none (no K3 launch: no second path to hold)",
+                  rerun_last_logits_max_abs_err=
+                  f"{max_err(last, warm_last):.3e}")
+            return model, caches
         if layerwise:
-            h = moe_layerwise_hold(model, cfg, other_cfg, batch["tokens"],
-                                   L=layers_mod, segments=tm._segments,
-                                   moe_mod=moe_mod)
+            h = layerwise_hold(model, cfg, other_cfg, batch, L=layers_mod,
+                               tm=tm, moe_mod=moe_mod)
             rtol = PREFILL_LOGITS_RTOL[torch.bfloat16]
             worst = max(range(len(h["attn_rel"])),
                         key=h["attn_rel"].__getitem__)
             phase("prefill", arch=arch, params="bf16", **fields,
-                  tokens="{}x{}".format(*toks.shape), launches=got,
-                  wall_s=f"{wall:.4f}",
-                  tok_per_s=f"{toks.numel() / wall:.1f}",
-                  peak_gb=f"{peak_gb:.2f}", check="layerwise bf16",
+                  check="layerwise bf16",
                   attn_max_rel_err=f"{h['attn_rel'][worst]:.3e}",
                   attn_worst_layer=worst, rtol=rtol,
                   expert_set_flips={i: f"{f:.4f}" for i, f in
@@ -1318,9 +1557,7 @@ def main() -> int:
         err, ref_max = max_err(last, ref_last), ref_last.abs().max().item()
         rtol = PREFILL_LOGITS_RTOL[check_dtype]
         phase("prefill", arch=arch, params="bf16", **fields,
-              tokens="{}x{}".format(*toks.shape), launches=got,
-              wall_s=f"{wall:.4f}", tok_per_s=f"{toks.numel() / wall:.1f}",
-              peak_gb=f"{peak_gb:.2f}", check_dtype=str(check_dtype)[6:],
+              check_dtype=str(check_dtype)[6:],
               last_logits_max_abs_err=f"{err:.3e}",
               ref_logits_max_abs=f"{ref_max:.3e}", rtol=rtol)
         check(err <= rtol * ref_max,
@@ -1401,22 +1638,7 @@ def main() -> int:
 
     # 5. serve: full width, f32, greedy decode of 4 requests -----------------
     for arch in ("llama3.2-1b", "recurrentgemma-2b", "rwkv6-3b"):
-        serve(arch, smoke=False, batch=4, prompt_len=2, gen_len=2,
-              seed=SEED, device=dev)    # warm-up: cuBLAS f32 plans
-        res, _, got = run_path(f"{arch} serve", lambda: serve(
-            arch, smoke=False, batch=4, prompt_len=16, gen_len=32,
-            seed=SEED, device=dev), {})
-        gen_tokens = res["generated"]
-        phase("serve", arch=arch, params="f32", batch=4, prompt_len=16,
-              gen_len=32, shape=gen_tokens.shape,
-              wall_s=f"{res['wall_s']:.4f}",
-              tok_per_s=f"{res['tokens_per_s']:.1f}", launches=got)
-        print(f"  tokens[0]={gen_tokens[0].tolist()}")
-        check(gen_tokens.shape == (4, 32), f"{arch} serve shape "
-              f"{gen_tokens.shape}")
-        check(bool(((gen_tokens >= 0)
-                    & (gen_tokens < get_config(arch).vocab_size)).all()),
-              f"{arch} serve tokens out of the vocabulary")
+        serve_phase(arch, run_path, dev)
         torch.cuda.empty_cache()
 
     # 5a. MoE serving: deepseek-moe-16b whole and mixtral-8x7b at full width,
@@ -1465,20 +1687,7 @@ def main() -> int:
     check(n["dropped"] > 0, "the small capacity factor dropped no slot")
     # [serve]: 4 requests on the bf16 weights (an f32 copy and its caches
     # do not fit beside them)
-    serve(arch, smoke=False, batch=4, prompt_len=2, gen_len=2, seed=SEED,
-          params=model, device=dev)     # warm-up: cuBLAS plans
-    res, _, got = run_path(f"{arch} serve", lambda: serve(
-        arch, smoke=False, batch=4, prompt_len=16, gen_len=32, seed=SEED,
-        params=model, device=dev), {})
-    gen_tokens = res["generated"]
-    phase("serve", arch=arch, params="bf16", batch=4, prompt_len=16,
-          gen_len=32, shape=gen_tokens.shape, wall_s=f"{res['wall_s']:.4f}",
-          tok_per_s=f"{res['tokens_per_s']:.1f}", launches=got)
-    print(f"  tokens[0]={gen_tokens[0].tolist()}")
-    check(gen_tokens.shape == (4, 32)
-          and bool(((gen_tokens >= 0) & (gen_tokens < cfg.vocab_size)).all()),
-          f"{arch} serve tokens: shape {gen_tokens.shape} or out of the "
-          f"vocabulary")
+    serve_phase(arch, run_path, dev, model=model)
     del model
     torch.cuda.empty_cache()
 
@@ -1519,7 +1728,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     f32_phase(arch, full, mix_tokens)
 
-    # 5b. the simulator at full size: one launch of K1 through run_batch ----
+    # 5b. the other configs: gemma3-4b, minitron-4b, internlm2-20b and the
+    # frontend models internvl2-2b and hubert-xlarge, whole ----------------
+    config_numbers = config_phases(prefill_phase=prefill_phase,
+                                   run_path=run_path, dev=dev, gen=gen)
+
+    # 5c. the simulator at full size: one launch of K1 through run_batch ----
     sim_cfg = MachineConfig(n_threads=32, mem_size=256, max_steps=60_000)
     suite = programs.make_suite(sim_cfg)
     reqs = sim_requests(SimRequest, programs, sim_cfg, SIM_WARPS)
@@ -1632,7 +1846,7 @@ def main() -> int:
     del warm, results, k1_state, twin, ins, host, got_pcs, got_masks
     torch.cuda.empty_cache()
 
-    # 5c. Fig 9 through compare, on the card ------------------------------------
+    # 5d. Fig 9 through compare, on the card ------------------------------------
     groups = len(plan_dispatch(get_mechanism("hanoi_torch"), [
         as_request(b, sim_cfg) for b in suite]))
     same, _, got = run_path(
@@ -1658,7 +1872,7 @@ def main() -> int:
           rows={r.program: f"{100 * r.discrepancy:.4f}" for r in rows},
           hanoi_torch_vs_hanoi_max=max(r.discrepancy for r in same.rows))
 
-    # 5d. the SM model at full size: sm_torch, one K1 and one K2 launch a
+    # 5e. the SM model at full size: sm_torch, one K1 and one K2 launch a
     # grid --------------------------------------------------------------------
     def suite_req(i, **kw):
         """Suite program i mod 23 on memory drawn from SEED + i, as the
@@ -1806,7 +2020,7 @@ def main() -> int:
     del sms_b, cells_b
     torch.cuda.empty_cache()
 
-    # 5e. Fig 10 through compare(timing="cycle"), on the card -------------------
+    # 5f. Fig 10 through compare(timing="cycle"), on the card -------------------
     fig10, _, got = run_path(
         "fig10 hanoi_torch vs turing_oracle",
         lambda: sim.compare("hanoi_torch", baseline="turing_oracle",
@@ -1826,7 +2040,7 @@ def main() -> int:
           paper_pct=0.19,
           rows={r.program: f"{100 * r.ipc_delta:.4f}" for r in rows10})
 
-    # 5f. static analysis and annotation synthesis, then the synthesized
+    # 5g. static analysis and annotation synthesis, then the synthesized
     # suite on the card ---------------------------------------------------------
     t0 = time.perf_counter()
     reports = [analyze_program(b.program, sim_cfg, name=b.name)
@@ -1880,7 +2094,7 @@ def main() -> int:
           deviations=deviated, held_to="K1's twin, bit for bit",
           card=repr(smi))
 
-    # 5g. trace sinks and the archive, on the card ----------------------------
+    # 5h. trace sinks and the archive, on the card ----------------------------
     archive_numbers = {}
     scratch = ROOT / "build"
     scratch.mkdir(exist_ok=True)
@@ -2080,14 +2294,14 @@ def main() -> int:
         shutil.rmtree(archive_root, ignore_errors=True)
     torch.cuda.empty_cache()
 
-    # 5h. the simulation service on the card ----------------------------------
+    # 5i. the simulation service on the card ----------------------------------
     service_numbers = service_phases(
         run_path=run_path, launches=launches, reqs=reqs, sim=sim,
         suite_req=suite_req, scratch=scratch,
         SimulationService=SimulationService, nearest_rank=nearest_rank,
         smi=smi)
 
-    # 5i. the paper's benchmarks and the quickstart on the card --------------
+    # 5j. the paper's benchmarks and the quickstart on the card --------------
     bench_numbers = bench_phases(
         run_path=run_path, get_mechanism=get_mechanism,
         as_request=as_request, plan_dispatch=plan_dispatch)
@@ -2132,6 +2346,10 @@ def main() -> int:
                                   gemma3_window)
     attn_mha = attention_times(PREFILL_B, PREFILL_S, *mha_attn, 0)
     attn_swa = attention_times(1, MIXTRAL_S, *swa_attn, swa_window)
+    attn_gemma3_global = attention_times(PREFILL_B, PREFILL_S, *gemma3_attn,
+                                         0)
+    attn_gqa = {arch: attention_times(PREFILL_B, PREFILL_S, *attn, 0)
+                for arch, attn in gqa_attn.items()}
 
     # K4 and K5 at the prefill shape, at their default segment length and
     # at the others the kernels take (the sweep the defaults come from)
@@ -2230,7 +2448,13 @@ def main() -> int:
          "hd128_mha": {"max_abs_err": errs["deepseek_mha_bf16"],
                        **attn_mha},
          "hd128_swa": {"max_abs_err": errs["mixtral_swa_bf16"],
-                       **attn_swa}},
+                       **attn_swa},
+         "hd320_global": {"max_abs_err": errs["gemma3_global_bf16"],
+                          **attn_gemma3_global},
+         **{f"hd128_gqa{H // K}": {"max_abs_err": errs[f"{arch}_bf16"],
+                                   **attn_gqa[arch]}
+            for arch, (H, K, _) in gqa_attn.items()},
+         "prefills": config_numbers},
         {"name": "rglru_scan", "route": "cuda",
          "status": "redesigned",
          "source": "src/repro_torch/csrc/rglru_scan.cu",

@@ -48,9 +48,12 @@ def serve(arch: str, *, smoke: bool = True, batch: int = 4,
     ``params`` defaults to random f32 weights drawn from ``seed`` on
     ``device``; pass the JAX package's weights (``models.convert``) to
     reproduce its tokens.  ``greedy`` is kept for the JAX signature: both
-    decode greedily."""
-    dev = resolve(device)
+    decode greedily.  An encoder or a frontend model is refused, with the
+    JAX package's exception type, before anything is drawn."""
     cfg = get_config(arch, smoke=smoke)
+    if not (cfg.is_decoder and cfg.frontend == "token"):
+        raise AssertionError(f"{arch} is not a token decoder")
+    dev = resolve(device)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = Transformer(cfg, init_params(model_struct(cfg), gen,

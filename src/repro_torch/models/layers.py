@@ -181,11 +181,15 @@ def mlp(params, x):
 
 
 # ---------------------------------------------------------------------------
-# embeddings / heads
+# embeddings / heads / frontends
 # ---------------------------------------------------------------------------
 
 def embed_struct(cfg: ModelConfig):
-    return {"tok": P((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"))}
+    s = {"tok": P((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"))}
+    if cfg.frontend in ("audio_stub", "vision_stub"):
+        s["frontend_proj"] = P((cfg.frontend_dim, cfg.d_model),
+                               ("frontend", "embed"))
+    return s
 
 
 def embed(params, tokens, cfg: ModelConfig):

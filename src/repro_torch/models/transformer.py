@@ -7,7 +7,8 @@ holds the stacked ``[repeat, ...]`` params of pattern position ``j``.
 layer (a view of its slice, not a copy), and the Python loop over layers
 takes the place of ``lax.scan``.  Dense GLOBAL / LOCAL / SWA, RECURRENT
 (RG-LRU) and RWKV-6 layers are ported, each with a dense or (in an ``moe``
-segment) a mixture-of-experts FFN.
+segment) a mixture-of-experts FFN, behind a token embedding or an audio or
+vision frontend stub.
 """
 from __future__ import annotations
 
@@ -125,6 +126,27 @@ class Transformer(nn.Module):
 # forward
 # ---------------------------------------------------------------------------
 
+def _embed(params: Transformer, cfg: ModelConfig, batch: dict):
+    """The input embedding of ``batch``, scaled by sqrt(d_model) in its
+    dtype.  The modality frontends are stubs: ``frames`` (audio) are
+    projected alone, and take the frames' dtype, so f32 frames run a bf16
+    model's layers in f32 as in the JAX package; ``patches`` (vision) are
+    projected, cast to the table's dtype and put ahead of the tokens."""
+    if cfg.frontend == "token":
+        return embed(params.embed, batch["tokens"], cfg)
+    e = params.embed
+    if cfg.frontend == "audio_stub":
+        frames = batch["frames"]
+        x = frames @ e.frontend_proj.to(frames.dtype)
+    else:
+        tok = e.tok[batch["tokens"].long()]
+        patches = batch["patches"]
+        patch = patches @ e.frontend_proj.to(patches.dtype)
+        x = torch.cat([patch.to(tok.dtype), tok], dim=1)
+    return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                            device=x.device)
+
+
 def _apply_layer(lp, x, *, cfg: ModelConfig, kind: str, is_moe: bool,
                  positions, cache=None, cache_pos=None):
     """One residual block.  Returns (x, new_cache, aux)."""
@@ -160,12 +182,14 @@ def _apply_layer(lp, x, *, cfg: ModelConfig, kind: str, is_moe: bool,
 
 def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
             return_cache: bool = False):
-    """Full-sequence forward (prefill).
+    """Full-sequence forward (prefill).  ``batch`` holds ``tokens``, or
+    ``frames`` (audio_stub), or ``tokens`` and ``patches`` (vision_stub: the
+    logits cover the patches, then the tokens).
 
     Returns (logits, aux_loss, caches); caches is None unless requested, and
     is then stacked per segment like the JAX package's scan output.
     """
-    x = embed(params.embed, batch["tokens"], cfg)
+    x = _embed(params, cfg, batch)
     S = x.shape[1]
     positions = batch.get("positions")
     if positions is None:

@@ -77,6 +77,15 @@ def _qkv(seed, B, S, H, Kh, hd, dtype, device):
     (1, 300, 4, 4, 128, True, 0, torch.float32, 2e-5),
     (1, 1200, 8, 2, 128, True, 512, torch.bfloat16, 2e-2),
     (1, 700, 8, 2, 128, True, 256, torch.float32, 2e-5),
+    # the GQA groups of 6, 3 and 2 at hd 128 (internlm2-20b, minitron-4b,
+    # internvl2-2b), and gemma3-4b's global layers (hd 320, no window)
+    (2, 256, 48, 8, 128, True, 0, torch.bfloat16, 2e-2),
+    (2, 256, 24, 8, 128, True, 0, torch.bfloat16, 2e-2),
+    (2, 256, 16, 8, 128, True, 0, torch.bfloat16, 2e-2),
+    (2, 256, 8, 4, 320, True, 0, torch.bfloat16, 2e-2),
+    (1, 300, 12, 2, 128, True, 0, torch.float32, 2e-5),
+    (1, 200, 6, 2, 128, True, 0, torch.float32, 2e-5),
+    (1, 150, 8, 4, 320, True, 0, torch.float32, 2e-5),
 ])
 def test_cuda_kernel_matches_plain(cuda, B, S, H, Kh, hd, causal, window,
                                    dtype, tol):
@@ -156,6 +165,33 @@ def test_smoke_prefill_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-4,
                                atol=2e-4)
 
+
+
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "internvl2-2b"])
+def test_smoke_frontend_prefill_on_card_matches_cpu(cuda, arch):
+    """The frontends' ``frontend_proj`` and hubert-xlarge's non-causal
+    encoder on the card against the CPU path (which
+    ``test_torch_configs.py`` holds against JAX), on batches from the
+    port's ``synthetic_batch``."""
+    from repro_torch.data import synthetic_batch
+    cfg = get_config(arch, smoke=True)
+    params = init_params(model_struct(cfg), torch.Generator().manual_seed(9),
+                         device="cpu")
+    seq = 40 + cfg.n_patches
+    batch = {k: torch.from_numpy(v)
+             for k, v in synthetic_batch(cfg, 2, seq, step=9).items()}
+    want, _, _ = forward(Transformer(cfg, params), cfg, batch)
+    gpu_model = Transformer(cfg, tree_map(lambda t: t.to(cuda), params))
+    before = ops.flash_attention.launches
+    got, caches = prefill(gpu_model, cfg.replace(attn_impl="flash"),
+                          {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + (
+        cfg.n_layers if cfg.causal else 0)
+    assert (caches is None) == (not cfg.is_decoder)
+    assert got.shape == (2, seq, cfg.vocab_size)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-4,
+                               atol=2e-4)
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-moe-16b"])
