@@ -100,7 +100,20 @@ main paths at full width, with random weights or data drawn from a seed:
   bit-equal to ``sm_interleave``; the 10x speedup reported, met or
   missed), ``bench_timing --smoke``, ``run --engine-api`` and the full
   ``run`` rows, and ``python -m repro_torch.examples.quickstart``, the
-  last four as subprocesses that must exit 0.
+  last four as subprocesses that must exit 0;
+- training: llama3.2-1b whole at full width (1.24 B parameters, f32
+  weights and AdamW state, ``remat="full"``, the reference attention)
+  for 6 steps of 4 x 2048 tokens through ``build_train_state``,
+  ``make_step`` and ``StragglerMonitor``, with each step's loss, grad
+  norm, lr and wall, tokens/s and the peak memory, and no kernel launched
+  (no kernel has a backward pass); its first 2 layers for 3 steps of 1 x
+  256 on the card against the CPU (TF32 off); ``quantize_int8`` of the
+  token table's gradient bit-equal to the CPU's and compressed smoke
+  steps; ``train()`` at the smoke config run twice, then failed at step
+  18 and resumed from its step-16 checkpoint under ``build/``, held to
+  the uninterrupted run; and ``python -m repro_torch.examples.train_lm``
+  and ``python -m repro_torch.benchmarks.bench_analysis --smoke`` (its
+  three gates on the card's host) as subprocesses.
 
 Every kernel's launch count is set to 0 just before each path and read just
 after it; a path that launches a kernel another number of times than it
@@ -216,6 +229,16 @@ MOE_DROP_FACTOR = 0.5
 CONFIG_ARCHS = ("gemma3-4b", "minitron-4b", "internlm2-20b", "internvl2-2b",
                 "hubert-xlarge")
 CUT_LAYERS, CUT_S, CARD_CPU_RTOL = 2, 512, 1e-4
+# training: llama3.2-1b whole at full width, f32 weights and AdamW state,
+# TRAIN_STEPS steps of TRAIN_B x TRAIN_S tokens; its first CUT_LAYERS layers
+# at 1 x CARD_CPU_TRAIN_S for 3 steps on the card against the CPU, the
+# losses and grad norms within TRAIN_CARD_CPU_RTOL and every parameter
+# within TRAIN_CARD_CPU_ATOL (f32 products and sums in other orders: ~1e-6
+# relative; AdamW's lr at step 3 is 3e-5, so a gradient sign flipped by
+# rounding near zero would show); COMPRESS_STEPS compressed smoke steps
+TRAIN_STEPS, TRAIN_B, TRAIN_S = 6, 4, 2048
+CARD_CPU_TRAIN_S, TRAIN_CARD_CPU_RTOL, TRAIN_CARD_CPU_ATOL = 256, 1e-5, 1e-5
+COMPRESS_STEPS = 8
 
 
 def phase(name: str, **fields) -> None:
@@ -804,6 +827,249 @@ def bench_phases(*, run_path, get_mechanism, as_request,
                                if k != "mismatches"},
             "run_rows": [line for line in full.splitlines()
                          if "," in line]}
+
+
+def train_phases(*, run_path, dev) -> None:
+    """The port's training path on the card: llama3.2-1b whole at full
+    width through ``build_train_state`` + ``make_step`` +
+    ``StragglerMonitor`` as ``train()`` runs them, as a main path (no
+    kernel launches: the JAX package differentiates through none); two
+    layers of it on the card against the CPU; ``train()``'s failure and
+    resume under ``build/``; int8 compression; the ``train_lm`` example and
+    ``bench_analysis --smoke`` as subprocesses."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.launch.train import build_train_state, make_step, train
+    from repro_torch.models import (Transformer, init_params, loss_fn,
+                                    model_struct)
+    from repro_torch.models.base import tree_leaves, tree_map
+    from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                                   cosine_schedule)
+    from repro_torch.runtime import StragglerMonitor, quantize_int8
+
+    # [train]: f32 weights and AdamW state, remat="full" (train_cell's
+    # default), the reference attention, TRAIN_B x TRAIN_S a step
+    cfg = get_config("llama3.2-1b").replace(remat="full")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt = build_train_state(cfg, SEED, dev)
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    step_fn = make_step(cfg, AdamWConfig(lr=3e-3), total_steps=TRAIN_STEPS)
+    pipe = SyntheticPipeline(cfg, TRAIN_B, TRAIN_S)
+    mon = StragglerMonitor()
+
+    def steps():
+        nonlocal model, opt
+        rows = []
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in pipe.get(i).items()}
+            model, opt, _, m = step_fn(model, opt, None, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            mon.record(0, wall)
+            rows.append({"loss": m["loss"].item(),
+                         "grad_norm": m["grad_norm"].item(),
+                         "lr": m["lr"].item(), "wall_s": wall})
+        return rows
+
+    rows, _, got = run_path("llama3.2-1b train", steps, {})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for i, r in enumerate(rows):
+        phase("train", arch="llama3.2-1b", step=i + 1,
+              loss=f"{r['loss']:.4f}", grad_norm=f"{r['grad_norm']:.4f}",
+              lr=f"{r['lr']:.3e}", wall_s=f"{r['wall_s']:.4f}")
+    walls = [r["wall_s"] for r in rows]
+    median = float(np.median(walls[1:]))
+    tokens = TRAIN_B * TRAIN_S
+    flops = train_flops(cfg, TRAIN_B, TRAIN_S)
+    phase("train", arch="llama3.2-1b", layers=cfg.n_layers,
+          params=sum(t.numel() for t in tree_leaves(model.tree)),
+          dtype="float32", remat=cfg.remat, attn_impl=cfg.attn_impl,
+          tokens=f"{TRAIN_B}x{TRAIN_S}", first_step_s=f"{walls[0]:.4f}",
+          median_step_s=f"{median:.4f}",
+          tok_per_s=f"{tokens / median:.1f}",
+          flops_per_step=f"{flops:.4e}",
+          tflop_per_s=f"{flops / median / 1e12:.2f}",
+          state_gb=f"{state_gb:.2f}", peak_gb=f"{peak_gb:.2f}",
+          stragglers=mon.stragglers(), launches=got)
+    check(all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in rows),
+          f"llama3.2-1b train: a loss or grad norm is not finite: {rows}")
+    # where a step's time goes, on host clocks (no trace): the forward and
+    # loss (its graph built, then dropped) and the AdamW update alone; the
+    # rest of a step is the backward, with the layers' recompute
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipe.get(TRAIN_STEPS).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = loss_fn(model, cfg, batch)
+    torch.cuda.synchronize()
+    fwd = time.perf_counter() - t0
+    del loss, batch
+    t0 = time.perf_counter()
+    adamw_update(model.tree, model.grads, opt, AdamWConfig(lr=3e-3),
+                 lr=cosine_schedule(opt["step"], peak_lr=3e-3,
+                                    total=TRAIN_STEPS))
+    torch.cuda.synchronize()
+    upd = time.perf_counter() - t0
+    phase("train_split", arch="llama3.2-1b", step_s=f"{median:.4f}",
+          forward_loss_s=f"{fwd:.4f}", adamw_s=f"{upd:.4f}",
+          backward_and_rest_s=f"{median - fwd - upd:.4f}")
+    tok_grad = model.grads["embed"]["tok"]
+    del model, opt, step_fn
+    torch.cuda.empty_cache()
+
+    # [train_compress]: quantize_int8 of the last step's gradient of the
+    # (tied) token table on the card and on the CPU, bit for bit; then
+    # train() with compress=True
+    q, s = quantize_int8(tok_grad)
+    q_cpu, s_cpu = quantize_int8(tok_grad.cpu())
+    same = (torch.equal(q.cpu(), q_cpu)
+            and s.cpu().view(torch.int32).item()
+            == s_cpu.view(torch.int32).item())
+    del tok_grad, q
+    res = train("llama3.2-1b", smoke=True, steps=COMPRESS_STEPS, batch=4,
+                seq=128, compress=True, lr=1e-2, log_every=1000,
+                device=dev)
+    phase("train_compress",
+          quantized=f"embed.tok grad {tuple(q_cpu.shape)}",
+          bit_equal_to_cpu=same, scale=f"{s_cpu.item():.6e}",
+          smoke_steps=COMPRESS_STEPS,
+          losses=",".join(f"{x:.4f}" for x in res["losses"]))
+    check(same, "quantize_int8 on the card differs from the CPU's")
+    check(bool(np.isfinite(res["losses"]).all()),
+          f"compressed training: {res['losses']}")
+
+    # [train_card_vs_cpu]: full width cut to 2 layers, 1 x 256, 3 steps from
+    # the same weights; TF32 off and f32 products at "highest"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    cut = get_config("llama3.2-1b").replace(
+        n_layers=CUT_LAYERS, layer_plan=((("global",), CUT_LAYERS),))
+    params = init_params(model_struct(cut), torch.Generator().manual_seed(
+        SEED), device="cpu")
+    step_fn = make_step(cut, AdamWConfig(lr=3e-3), total_steps=10)
+    pipe = SyntheticPipeline(cut, 1, CARD_CPU_TRAIN_S)
+    runs = {}
+    for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        m = Transformer(cut, tree_map(lambda t: t.to(where, copy=True),
+                                      params))
+        m.trainable()
+        o = adamw_init(m.tree)
+        t0 = time.perf_counter()
+        metrics = []
+        for i in range(3):
+            batch = {k: torch.from_numpy(v).to(where)
+                     for k, v in pipe.get(i).items()}
+            m, o, _, mt = step_fn(m, o, None, batch)
+            metrics.append((mt["loss"].item(), mt["grad_norm"].item()))
+        torch.cuda.synchronize()
+        runs[key] = (metrics, [t.cpu() for t in tree_leaves(m.tree)],
+                     time.perf_counter() - t0)
+        del m, o
+    del params
+    torch.cuda.empty_cache()
+    (mc, pc, wc), (mh, ph, wh) = runs["card"], runs["cpu"]
+    metric_rel = float(np.max(np.abs(np.array(mc) - np.array(mh))
+                              / np.abs(np.array(mh))))
+    param_err = max(max_err(a, b) for a, b in zip(pc, ph, strict=True))
+    phase("train_card_vs_cpu", arch="llama3.2-1b",
+          layers=f"{CUT_LAYERS} of 16", tokens=f"1x{CARD_CPU_TRAIN_S}",
+          steps=3, tf32=torch.backends.cuda.matmul.allow_tf32,
+          matmul_precision=torch.get_float32_matmul_precision(),
+          losses_card=",".join(f"{x:.6f}" for x, _ in mc),
+          losses_cpu=",".join(f"{x:.6f}" for x, _ in mh),
+          loss_gnorm_max_rel_err=f"{metric_rel:.3e}",
+          rtol=TRAIN_CARD_CPU_RTOL,
+          params_max_abs_err=f"{param_err:.3e}",
+          atol=TRAIN_CARD_CPU_ATOL, card_s=f"{wc:.3f}", cpu_s=f"{wh:.3f}")
+    check(metric_rel <= TRAIN_CARD_CPU_RTOL
+          and param_err <= TRAIN_CARD_CPU_ATOL,
+          f"training on the card vs the CPU: losses and grad norms "
+          f"{metric_rel}, parameters {param_err}")
+    del pc, ph
+
+    # [train_resume]: train() on the card at the smoke config, uninterrupted
+    # twice (its determinism), then failed at step 18 and resumed from the
+    # step-16 checkpoint under build/
+    ck = ROOT / "build" / "train_resume"
+    shutil.rmtree(ck, ignore_errors=True)
+    kw = dict(smoke=True, steps=24, batch=4, seq=32, ckpt_every=8, lr=1e-3,
+              log_every=1000, device=dev)
+    full = [train("llama3.2-1b", **kw) for _ in range(2)]
+    try:
+        train("llama3.2-1b", ckpt_dir=str(ck), fail_at_step=18, **kw)
+        failed = ""
+    except RuntimeError as e:
+        failed = str(e)
+    from repro_torch.checkpoint import latest_step
+    at = latest_step(str(ck))
+    resumed = train("llama3.2-1b", ckpt_dir=str(ck), resume=True, **kw)
+    shutil.rmtree(ck, ignore_errors=True)
+
+    def diff(a, b):
+        return max(max_err(x, y) for x, y in zip(tree_leaves(a),
+                                                  tree_leaves(b),
+                                                  strict=True))
+
+    rerun = diff(full[0]["params"], full[1]["params"])
+    loss_diff = abs(resumed["losses"][-1] - full[0]["losses"][-1])
+    param_diff = diff(resumed["params"], full[0]["params"])
+    opt_diff = diff(resumed["opt_state"], full[0]["opt_state"])
+    phase("train_resume", arch="llama3.2-1b smoke", steps=24,
+          failed=repr(failed), resumed_from=at,
+          final_loss=f"{full[0]['losses'][-1]:.6f}",
+          final_loss_resumed=f"{resumed['losses'][-1]:.6f}",
+          loss_abs_diff=f"{loss_diff:.3e}",
+          params_max_abs_diff=f"{param_diff:.3e}",
+          opt_max_abs_diff=f"{opt_diff:.3e}",
+          two_uninterrupted_runs_params_max_abs_diff=f"{rerun:.3e}",
+          held_to="rtol 1e-4 / atol 1e-5 (loss), rtol 2e-3 / atol 2e-4 "
+                  "(params): tests/test_runtime.py")
+    want = [t.float() for t in tree_leaves(full[0]["params"])]
+    got_p = [t.float() for t in tree_leaves(resumed["params"])]
+    check("injected failure at step 18" in failed and at == 16
+          and len(resumed["losses"]) == 8
+          and loss_diff <= 1e-5 + 1e-4 * abs(full[0]["losses"][-1])
+          and all(bool(((g - w).abs() <= 2e-4 + 2e-3 * w.abs()).all())
+                  for g, w in zip(got_p, want)),
+          f"train resume: failed={failed!r} at={at} loss diff {loss_diff} "
+          f"params {param_diff}")
+    del full, resumed
+    torch.cuda.empty_cache()
+
+    out = subprocess_phase("train_lm", ["repro_torch.examples.train_lm"],
+                           600)
+    line = next(ln for ln in out.splitlines()
+                if ln.startswith("[example] loss"))
+    first, last = (float(x) for x in line.split()[2:5:2])
+    check(last < first, f"train_lm: {line}")
+
+    out = subprocess_phase("bench_analysis",
+                           ["repro_torch.benchmarks.bench_analysis",
+                            "--smoke"], 600)
+    gates = [ln for ln in out.splitlines() if ln.startswith("gate OK")]
+    phase("bench_analysis", gates=len(gates))
+    for ln in gates:
+        print(f"  {ln}")
+    check(len(gates) == 3, "bench_analysis: a gate line is missing")
+
+
+def train_flops(cfg, B: int, S: int) -> float:
+    """FLOPs of one training step of a dense decoder with remat="full":
+    forward (2 a weight and token, 4·S·H·hd a token and layer for the
+    scores and the weighted sum over all S positions, as the reference
+    attention computes them), backward (twice the forward) and the
+    layers' recompute (one more forward of them)."""
+    d, L = cfg.d_model, cfg.n_layers
+    layer = (2 * d * cfg.n_heads * cfg.hd + 2 * d * cfg.n_kv_heads * cfg.hd
+             + 3 * d * cfg.d_ff)
+    head = d * cfg.padded_vocab
+    tokens = B * S
+    layers_fwd = 2 * L * layer * tokens + 4 * L * S * cfg.n_heads * cfg.hd \
+        * tokens
+    return 3 * (layers_fwd + 2 * head * tokens) + layers_fwd
 
 
 def service_phases(*, run_path, launches, reqs, sim, suite_req, scratch,
@@ -2305,6 +2571,9 @@ def main() -> int:
     bench_numbers = bench_phases(
         run_path=run_path, get_mechanism=get_mechanism,
         as_request=as_request, plan_dispatch=plan_dispatch)
+
+    # 5k. training on the card ------------------------------------------------
+    train_phases(run_path=run_path, dev=dev)
 
     # 6. kernel times at the main paths' shapes ------------------------------
     def attention_times(B, S, H, K, hd, window):

@@ -5,10 +5,17 @@ torch version; any other device launches the hand-written kernel or raises.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, so a run
 can show that its main path went through the kernel.  The counts are
 exact when several threads launch (a service's workers).
+
+No kernel has a backward pass, in the JAX package (no ``custom_vjp``) or
+here, so the three model kernels refuse an input that requires grad while
+grad mode is on, on either device: on the card a kernel's output would
+carry no gradient, and ``jax.grad`` through the JAX kernels fails.
 """
 from __future__ import annotations
 
 import threading
+
+import torch
 
 from ..core import hanoi as _hanoi
 from . import flash_attention as _fa
@@ -18,11 +25,20 @@ from . import rwkv6_scan as _rw
 from . import sm_sched as _sm
 
 
+def _no_autograd(name: str, *tensors) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"ops.{name} has no backward pass (nor has the JAX package's "
+            f"kernel): train with the plain path (attn_impl='reference', "
+            f"use_kernel=False), or call it under torch.no_grad()")
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     bq: int | None = None, bk: int | None = None):
     """q: [B, S, H, hd]; k, v: [B, S, K, hd] (GQA).  Returns [B, S, H, hd].
     Tiles default to the kernel's for this dtype and head dim
     (:func:`_fa.tiles`)."""
+    _no_autograd("flash_attention", q, k, v)
     bq, bk = _fa.tiles(q.shape[1], k.shape[1], q.shape[3], bq, bk,
                         dtype=q.dtype)
     if q.device.type == "cpu":
@@ -39,6 +55,7 @@ def rglru_scan(a, b, *, seg: int = _rg.DEFAULT_SEG):
 
     ``seg``, the time steps per segment, sets the split-over-time schedule
     that the kernel and its plain twin both follow (:mod:`.rglru_scan`)."""
+    _no_autograd("rglru_scan", a, b)
     if a.device.type == "cpu":
         return _rg.rglru_scan_plain(a, b, seg=seg)
     h = _rg.rglru_scan_cuda(a, b, seg=seg)
@@ -51,6 +68,7 @@ def rwkv6_scan(r, k, v, w, u, *, seg: int = _rw.DEFAULT_SEG):
     out [B, S, H, hd], s_last [B, H, hd, hd].  ``seg``, the tokens per
     segment, sets the schedule that the kernel and its plain twin both
     follow (:mod:`.rwkv6_scan`)."""
+    _no_autograd("rwkv6_scan", r, k, v, w, u)
     if r.device.type == "cpu":
         return _rw.rwkv6_scan_plain(r, k, v, w, u, seg=seg)
     out = _rw.rwkv6_scan_cuda(r, k, v, w, u, seg=seg)

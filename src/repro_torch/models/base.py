@@ -44,9 +44,18 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def _leaves(struct) -> list[P]:
-    out: list[P] = []
-    tree_map(out.append, struct)
+def tree_unflatten(like, leaves):
+    """A tree laid out as ``like`` holding ``leaves`` in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists in the JAX package's order
+    (dict keys sorted, lists in order); a ``None`` is a leaf here."""
+    out: list = []
+    tree_map(out.append, tree)
     return out
 
 
@@ -94,7 +103,7 @@ class Params(nn.Module):
 
 
 def param_count(struct) -> int:
-    return sum(int(np.prod(leaf.shape)) for leaf in _leaves(struct))
+    return sum(int(np.prod(leaf.shape)) for leaf in tree_leaves(struct))
 
 
 # ---------------------------------------------------------------------------

@@ -214,3 +214,20 @@ def lm_logits(head_params, embed_params, x, cfg: ModelConfig):
     if cfg.padded_vocab != cfg.vocab_size:
         logits = logits[..., :cfg.vocab_size]
     return logits
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean CE over valid positions; logits [.., V], labels int [..].
+
+    The JAX package contracts the logits with a one-hot of the labels, so
+    that tensor-parallel logits need no vocab-axis gather; on one card a
+    gather of the gold logit is the same number for finite logits, and at
+    full width the one-hot would be another logits-sized f32 tensor."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

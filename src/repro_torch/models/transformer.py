@@ -1,5 +1,6 @@
 """Model assembly (port of ``repro.models.transformer``): layer plans ->
-param structure, the model as ``nn.Module``s, forward (prefill) and decode.
+param structure, the model as ``nn.Module``s, forward (prefill and
+training), the training loss and decode.
 
 The param tree keeps the JAX package's layout: ``segments[i][str(j)]``
 holds the stacked ``[repeat, ...]`` params of pattern position ``j``.
@@ -12,13 +13,16 @@ vision frontend stub.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.utils.checkpoint as ckpt
 from torch import nn
 
 from .base import GLOBAL, RECURRENT, RWKV, ModelConfig, P, Params, tree_map
 from .layers import (attention, attention_cache_struct, attention_struct,
-                     embed, embed_struct, head_struct, lm_logits, mlp,
-                     mlp_struct, rmsnorm, rmsnorm_struct)
+                     cross_entropy, embed, embed_struct, head_struct,
+                     lm_logits, mlp, mlp_struct, rmsnorm, rmsnorm_struct)
 from .moe import moe, moe_struct
 from .recurrent import (rglru, rglru_state_struct, rglru_struct,
                         rwkv6_channel_mix, rwkv6_state_struct, rwkv6_struct,
@@ -109,10 +113,18 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int):
 class Transformer(nn.Module):
     """The model's parameters as modules: ``embed``, ``segments[i][r]``
     (one :class:`Params` block per layer, keyed by pattern position),
-    ``final_norm`` and ``head``."""
+    ``final_norm`` and ``head``.  ``tree`` is the param tree they wrap, in
+    the JAX package's stacked layout: each module parameter shares its
+    storage with a leaf (or a layer's slice of one), so an in-place update
+    of the tree is what the modules compute with.
+
+    The parameters are frozen; :meth:`trainable` makes them require grad,
+    once, for training."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
+        self.tree = params
+        self.grads = None
         self.embed = Params(params["embed"])
         self.segments = nn.ModuleList(
             nn.ModuleList(Params(tree_map(lambda t, r=r: t[r], seg_params))
@@ -120,6 +132,33 @@ class Transformer(nn.Module):
             for seg, seg_params in zip(_segments(cfg), params["segments"]))
         self.final_norm = Params(params["final_norm"])
         self.head = Params(params["head"])
+
+    def trainable(self) -> dict:
+        """Make every parameter require grad, and give it a gradient in the
+        tree's stacked layout: ``self.grads``, a tree of zeros laid out as
+        ``self.tree``, whose leaves (or their layer slices) are the module
+        parameters' ``.grad``.  A backward pass adds into them in place;
+        zero them before the next.  A parameter that the loss never reads
+        keeps a zero gradient.  Returns ``self.grads``."""
+        if self.grads is None:
+            self.grads = tree_map(torch.zeros_like, self.tree)
+
+            def bind(module, grads, r=None):
+                for name, g in grads.items():
+                    if isinstance(g, dict):
+                        bind(getattr(module, name), g, r)
+                        continue
+                    p = getattr(module, name)
+                    p.requires_grad_(True)
+                    p.grad = g if r is None else g[r]
+
+            for name in ("embed", "final_norm", "head"):
+                bind(getattr(self, name), self.grads[name])
+            for layers, seg_grads in zip(self.segments,
+                                         self.grads["segments"]):
+                for r, lp in enumerate(layers):
+                    bind(lp, seg_grads, r)
+        return self.grads
 
 
 # ---------------------------------------------------------------------------
@@ -180,11 +219,38 @@ def _apply_layer(lp, x, *, cfg: ModelConfig, kind: str, is_moe: bool,
     return x + out2, new_cache, aux
 
 
+def _save_dots(ctx, func, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of products with no batch
+    dims (JAX's ``dots_with_no_batch_dims_saveable``; an einsum without
+    batch dims runs as a ``bmm`` of batch 1), recompute the rest."""
+    aten = torch.ops.aten
+    if func in (aten.mm.default, aten.addmm.default) or (
+            func is aten.bmm.default and args[0].shape[0] == 1):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, cfg: ModelConfig):
+    """Activation checkpointing of one layer-pattern repeat: ``"full"``
+    keeps only its input and recomputes the rest in the backward pass,
+    ``"dots"`` keeps the products' outputs too."""
+    if cfg.remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+    return fn
+
+
 def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
             return_cache: bool = False):
-    """Full-sequence forward (prefill).  ``batch`` holds ``tokens``, or
-    ``frames`` (audio_stub), or ``tokens`` and ``patches`` (vision_stub: the
-    logits cover the patches, then the tokens).
+    """Full-sequence forward (prefill and training).  ``batch`` holds
+    ``tokens``, or ``frames`` (audio_stub), or ``tokens`` and ``patches``
+    (vision_stub: the logits cover the patches, then the tokens).  Each
+    repeat of a segment's layer pattern is checkpointed as ``cfg.remat``
+    says.
 
     Returns (logits, aux_loss, caches); caches is None unless requested, and
     is then stacked per segment like the JAX package's scan output.
@@ -198,15 +264,25 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
     for seg, layers in zip(_segments(cfg), params.segments):
+        def body(x, lp, pattern=seg["pattern"], is_moe=seg["moe"]):
+            new_caches = {}
+            aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+            for j, kind in enumerate(pattern):
+                x, c, aux = _apply_layer(getattr(lp, str(j)), x, cfg=cfg,
+                                         kind=kind, is_moe=is_moe,
+                                         positions=positions)
+                new_caches[str(j)] = c
+                aux_sum = aux_sum + aux
+            return x, new_caches, aux_sum
+
+        body = _remat_wrap(body, cfg)
         per_pos = {str(j): [] for j in range(len(seg["pattern"]))}
         for lp in layers:
-            for j, kind in enumerate(seg["pattern"]):
-                x, c, aux = _apply_layer(getattr(lp, str(j)), x, cfg=cfg,
-                                         kind=kind, is_moe=seg["moe"],
-                                         positions=positions)
-                aux_total = aux_total + aux
-                if return_cache:
-                    per_pos[str(j)].append(c)
+            x, cs, aux = body(x, lp)
+            aux_total = aux_total + aux
+            if return_cache:
+                for j, c in cs.items():
+                    per_pos[j].append(c)
         if return_cache:
             caches.append({j: {name: torch.stack([c[name] for c in cs])
                                for name in cs[0]}
@@ -215,6 +291,24 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     logits = lm_logits(params.head, params.embed, x, cfg)
     return logits, aux_total, caches
+
+
+def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict):
+    """Scalar loss for one batch; labels/masks per family.  Returns
+    (ce + 0.01 * aux, {"ce", "aux"})."""
+    logits, aux, _ = forward(params, cfg, batch)
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    if cfg.frontend == "vision_stub":
+        # logits cover [patches; tokens] — score text positions only
+        n_txt = labels.shape[1]
+        logits = logits[:, -n_txt:]
+    if cfg.is_decoder and cfg.frontend == "token":
+        logits = logits[:, :-1]
+        labels = labels[:, 1:]
+        mask = None if mask is None else mask[:, 1:]
+    ce = cross_entropy(logits, labels, mask)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@ bit in every field of the state, on the suite and on the divergence traps
 each of its layouts' boundaries.  K2, the SM issue scheduler, is held to
 its twin bit for bit in every output, on K1's traces and on synthetic
 grids (:func:`sched_grid`, on which ``test_torch_sm.py`` holds the twin to
-JAX's scheduler).
+JAX's scheduler).  K3-K5's wrappers refuse autograd on CUDA tensors, and
+two training steps of the smoke model on the card are held against the
+CPU's (which ``test_torch_train.py`` holds against JAX).
 
 Every test here needs an NVIDIA GPU: it carries the ``gpu`` marker and skips
 without one.  Run them on the card with
@@ -25,7 +27,7 @@ from repro_torch.kernels import rwkv6_scan as rw
 from repro_torch.launch.steps import prefill
 from repro_torch.models import Transformer, forward, init_params, model_struct
 from repro_torch.models import recurrent
-from repro_torch.models.base import tree_map
+from repro_torch.models.base import tree_leaves, tree_map
 
 pytestmark = pytest.mark.gpu
 
@@ -1257,3 +1259,59 @@ def test_replay_through_service_on_card(cuda, tmp_path):
     assert got.mean_discrepancy() == 0.0
     assert [(r.program, r.discrepancy) for r in got.rows] == \
         [(r.program, r.discrepancy) for r in want.rows]
+
+
+def test_kernels_refuse_autograd_on_card(cuda):
+    """K3-K5 have no backward pass: their wrappers refuse a CUDA input that
+    requires grad while grad mode is on, before anything launches."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device=cuda)
+
+    calls = {"flash_attention": (ops.flash_attention,
+                                 [rand(1, 64, 2, 64) for _ in range(3)]),
+             "rglru_scan": (ops.rglru_scan, [rand(1, 64, 8) for _ in
+                                             range(2)]),
+             "rwkv6_scan": (ops.rwkv6_scan, [rand(1, 64, 2, 64) for _ in
+                                             range(4)] + [rand(2, 64)])}
+    for name, (fn, args) in calls.items():
+        before = fn.launches
+        args[0].requires_grad_(True)
+        with pytest.raises(RuntimeError, match=f"ops.{name} has no backward"):
+            fn(*args)
+        assert fn.launches == before
+        with torch.no_grad():
+            fn(*args)
+        assert fn.launches == before + 1
+
+
+def test_train_step_card_vs_cpu(cuda):
+    """Two steps of llama3.2-1b's smoke config from the same f32 weights
+    and batches, on the card and on the CPU (TF32 off): losses, grad norms
+    and every parameter after them within 1e-5 (f32 products and sums in
+    other orders)."""
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.train import make_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = get_config("llama3.2-1b", smoke=True)
+    params = init_params(model_struct(cfg), torch.Generator().manual_seed(0),
+                         device="cpu")
+    step = make_step(cfg, AdamWConfig(lr=1e-2), total_steps=4)
+    runs = {}
+    for dev in ("cpu", cuda):
+        model = Transformer(cfg, tree_map(lambda t: t.to(dev, copy=True),
+                                          params))
+        model.trainable()
+        opt, losses = adamw_init(model.tree), []
+        for i in range(2):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in synthetic_batch(cfg, 2, 64, step=i).items()}
+            model, opt, _, m = step(model, opt, None, batch)
+            losses.append((m["loss"].item(), m["grad_norm"].item()))
+        runs[str(dev)] = (losses, [t.cpu() for t in tree_leaves(model.tree)])
+    (lc, pc), (lg, pg) = runs["cpu"], runs["cuda"]
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for a, b in zip(pg, pc):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5)
