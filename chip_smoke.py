@@ -239,6 +239,23 @@ CUT_LAYERS, CUT_S, CARD_CPU_RTOL = 2, 512, 1e-4
 TRAIN_STEPS, TRAIN_B, TRAIN_S = 6, 4, 2048
 CARD_CPU_TRAIN_S, TRAIN_CARD_CPU_RTOL, TRAIN_CARD_CPU_ATOL = 256, 1e-5, 1e-5
 COMPRESS_STEPS = 8
+# distribution: llama3.2-1b whole, DIST_TRAIN_STEPS steps of DIST_TRAIN_B x
+# DIST_TRAIN_S at (data 2, model 2) on 4 ranks sharing the card, against
+# the one-rank step (TP and FSDP sum the products and the gradients in
+# other orders).  Held: the losses and grad norms within DIST_TRAIN_RTOL
+# relative; each parameter leaf within DIST_TRAIN_RTOL relative in norm
+# (|p - p1| / |p1|), which a systematic difference in the updates fails;
+# every parameter within the sign-flip bound of _adamw_flip_bound.  A
+# gradient at the reductions' rounding noise can take either sign, and
+# AdamW's per-element step then differs by up to 2 * lr * u_max: no
+# gradient error can move an element further, so that hold checks the
+# layout (each shard back in its place), not the gradients.  The lr is 0,
+# 1.5e-5 and 3e-5 in these steps (warmup from DIST_TRAIN_LR).
+# compressed_allreduce of a tensor the size of the token table's gradient
+# over the 4 ranks
+DIST_TRAIN_STEPS, DIST_TRAIN_B, DIST_TRAIN_S = 3, 4, 512
+DIST_TRAIN_LR, DIST_TRAIN_RTOL = 3e-3, 1e-5
+DIST_COMPRESS_SHAPE = (128256, 2048)
 
 
 def phase(name: str, **fields) -> None:
@@ -1056,6 +1073,428 @@ def train_phases(*, run_path, dev) -> None:
     check(len(gates) == 3, "bench_analysis: a gate line is missing")
 
 
+# ---------------------------------------------------------------------------
+# distribution: ranks spawned here, each a module-level function of this
+# file (spawn_world pickles it by name), all on the one card
+# ---------------------------------------------------------------------------
+
+def _dist_setup():
+    """A rank's common set-up: f32 products in full f32, two host threads
+    (the ranks share the host's cores), its card."""
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _dist_batches(cfg, steps: int):
+    from repro_torch.data import SyntheticPipeline
+    pipe = SyntheticPipeline(cfg, DIST_TRAIN_B, DIST_TRAIN_S)
+    return [pipe.get(i) for i in range(steps)]
+
+
+def _dist_train_run(cfg, dev, mesh=None):
+    """DIST_TRAIN_STEPS steps of ``make_step`` as ``train()`` runs them, on
+    one rank (``mesh`` None) or sharded on ``mesh``: (rows of loss and
+    grad norm, step walls, resident state bytes, peak bytes above what
+    was resident before, model)."""
+    from repro_torch.launch.steps import mesh_config
+    from repro_torch.launch.train import build_train_state, make_step
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sharding import local_batch
+
+    if mesh is not None:
+        cfg = mesh_config(cfg, mesh, DIST_TRAIN_B)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt = build_train_state(cfg, SEED, dev, mesh)
+    state = torch.cuda.memory_allocated() - base
+    step_fn = make_step(cfg, AdamWConfig(lr=DIST_TRAIN_LR),
+                        total_steps=DIST_TRAIN_STEPS)
+    rows, walls = [], []
+    for b in _dist_batches(cfg, DIST_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        if mesh is not None:
+            batch = local_batch(batch, cfg, mesh)
+        model, opt, _, m = step_fn(model, opt, None, batch)
+        rows.append((m["loss"].item(), m["grad_norm"].item()))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - base
+    del opt
+    model.grads = None
+    return rows, walls, state, peak, model
+
+
+def _adamw_flip_bound(steps: int, peak_lr: float) -> float:
+    """The most AdamW (``optim.adamw``'s defaults) can move one parameter
+    apart in two runs over ``steps`` steps of ``make_step``'s schedule,
+    whatever their gradients: the update m_hat / sqrt(v_hat) at Adam step
+    n is at most u_max(n) = sqrt(sum_s a_s^2 / b_s) in size (Cauchy-
+    Schwarz over the moments' weights a_s, b_s), so two runs' updates
+    differ by at most 2 * lr * u_max(n) a step; weight decay adds lr *
+    0.1 times the difference already made, which the factor (1 + 0.1)
+    covers."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.schedule import cosine_schedule
+    c = AdamWConfig()
+    total = 0.0
+    for t in range(steps):
+        n = t + 1
+        u2 = sum(((1 - c.b1) * c.b1 ** (n - s) / (1 - c.b1 ** n)) ** 2
+                 / ((1 - c.b2) * c.b2 ** (n - s) / (1 - c.b2 ** n))
+                 for s in range(1, n + 1))
+        lr = cosine_schedule(t, peak_lr=peak_lr, total=steps).item()
+        total += 2 * lr * u2 ** 0.5 * (1 + c.weight_decay)
+    return total
+
+
+def _params_vs(tree, ref_tree) -> tuple[float, float, float, int, int]:
+    """(max abs error, the worst leaf's error relative to its largest
+    value, the worst leaf's error norm relative to its norm, leaves
+    bit-equal, leaves) of a sharded tree against a whole one
+    (``ref_tree``: on one rank, None on the others), each leaf gathered
+    on every rank in turn."""
+    from repro_torch.models.base import tree_leaves
+    from repro_torch.runtime import full_tensor
+    leaves = tree_leaves(tree)
+    refs = None if ref_tree is None else tree_leaves(ref_tree)
+    abs_err, leaf_rel, norm_rel, equal = 0.0, 0.0, 0.0, 0
+    for i, t in enumerate(leaves):
+        full = full_tensor(t)
+        if refs is not None:
+            e = max_err(full, refs[i])
+            abs_err = max(abs_err, e)
+            leaf_rel = max(leaf_rel,
+                           e / max(refs[i].abs().max().item(), 1e-30))
+            norm_rel = max(norm_rel, (
+                torch.linalg.vector_norm((full - refs[i]).double())
+                / max(torch.linalg.vector_norm(refs[i].double()).item(),
+                      1e-30)).item())
+            equal += bool(torch.equal(full, refs[i]))
+        del full
+    return abs_err, leaf_rel, norm_rel, equal, len(leaves)
+
+
+def _rel(rows, ref_rows) -> float:
+    return float(np.max(np.abs(np.array(rows) - np.array(ref_rows))
+                        / np.abs(np.array(ref_rows))))
+
+
+def _dist_world1(rank, world):
+    """[dist_nccl1]: the one-rank step, then the same steps on a (1, 1)
+    mesh over NCCL."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import comm
+    dev = _dist_setup()
+    cfg = get_config("llama3.2-1b").replace(remat="full")
+    ref_rows, _, _, _, ref = _dist_train_run(cfg, dev)
+    mesh = make_host_mesh(1, dev)
+    comm.STATS.reset()
+    rows, walls, state, peak, model = _dist_train_run(cfg, dev, mesh)
+    stats = comm.STATS.as_dict()
+    abs_err, leaf_rel, norm_rel, equal, n = _params_vs(model.tree, ref.tree)
+    return {"backend": dist.get_backend(), "rows": rows, "ref_rows": ref_rows,
+            "walls": walls, "state": state, "peak": peak,
+            "rel": _rel(rows, ref_rows), "abs_err": abs_err,
+            "leaf_rel": leaf_rel, "norm_rel": norm_rel, "equal": equal,
+            "leaves": n,
+            "comm": stats, "bit_equal_metrics": rows == ref_rows}
+
+
+def _dist_world4(rank, world, ckpt: str):
+    """[dist_train] at (2, 2) against rank 0's one-rank run;
+    [dist_compress] over the 4 ranks; the save half of [dist_elastic]."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params, model_struct
+    from repro_torch.runtime import compressed_allreduce
+    from repro_torch.sharding import comm, param_pspecs
+    dev = _dist_setup()
+    out = {"backend": dist.get_backend()}
+    cfg = get_config("llama3.2-1b").replace(remat="full")
+    ref = ref_rows = None
+    if rank == 0:
+        ref_rows, _, out["ref_state"], _, ref = _dist_train_run(cfg, dev)
+        torch.cuda.empty_cache()
+    ref_rows = [None] if ref_rows is None else [ref_rows]
+    dist.broadcast_object_list(ref_rows, src=0)
+    mesh = make_host_mesh(2, dev)
+    comm.STATS.reset()
+    rows, walls, state, peak, model = _dist_train_run(cfg, dev, mesh)
+    out.update(comm=comm.STATS.as_dict(), rows=rows, walls=walls,
+               state=state, peak=peak, mesh=list(mesh.mesh.shape))
+    # the final parameters against rank 0's one-rank run
+    abs_err, leaf_rel, norm_rel, equal, n = _params_vs(
+        model.tree, None if ref is None else ref.tree)
+    out.update(rel=_rel(rows, ref_rows[0]), abs_err=abs_err,
+               leaf_rel=leaf_rel, norm_rel=norm_rel, equal=equal, leaves=n,
+               ref_rows=ref_rows[0])
+    del model, ref
+    torch.cuda.empty_cache()
+
+    # [dist_compress]: every rank its own tensor the size of the token
+    # table's gradient; the int8 all-reduce on the card and, over the same
+    # group, on the CPU, against the f32 sum
+    mesh1 = init_device_mesh(dev.type, (world,), mesh_dim_names=("data",))
+    g = torch.Generator(device=dev).manual_seed(SEED + rank)
+    x = torch.randn(DIST_COMPRESS_SHAPE, generator=g, device=dev)
+    exact = comm.all_reduce(x, mesh1.get_group("data"))
+    comm.STATS.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = compressed_allreduce(x, mesh1, "data")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    wire = comm.STATS.as_dict()
+    rel_c = max_err(got, exact) / exact.abs().max().item()
+    got_cpu = compressed_allreduce(x.cpu(), mesh1, "data")
+    out["compress"] = {
+        "rel_err": rel_c, "wall_s": wall, "wire": wire,
+        "n": x.numel(), "equal_cpu": bool(torch.equal(got.cpu(), got_cpu)),
+        "cpu_max_abs_diff": max_err(got.cpu(), got_cpu)}
+    del x, exact, got, got_cpu
+    torch.cuda.empty_cache()
+
+    # [dist_elastic], save: the f32 parameters drawn at (2, 2), each rank
+    # writing its own shards
+    struct = model_struct(cfg)
+    params = init_params(struct, torch.Generator(device=dev).manual_seed(
+        SEED), device=dev, mesh=mesh, specs=param_pspecs(struct, cfg, mesh))
+    t0 = time.perf_counter()
+    save_checkpoint(ckpt, 1, params, process_index=rank,
+                    process_count=world)
+    out["save_s"] = time.perf_counter() - t0
+    dist.barrier()
+    return out
+
+
+def _dist_world2(rank, world, ckpt: str):
+    """[dist_prefill] at (1, 2) through K3, against rank 0's one-rank
+    prefill; the restore half of [dist_elastic] on ``survivors_mesh``."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import prefill, prefill_config
+    from repro_torch.models import Transformer, init_params, model_struct
+    from repro_torch.models.base import tree_leaves, tree_map
+    from repro_torch.runtime import full_tensor, survivors_mesh
+    from repro_torch.sharding import (comm, local_batch, param_pspecs,
+                                      placements)
+    dev = _dist_setup()
+    out = {"backend": dist.get_backend()}
+    mesh = make_host_mesh(2, dev)
+    lcfg = get_config("llama3.2-1b")
+    tokens = torch.randint(0, lcfg.vocab_size, (PREFILL_B, PREFILL_S),
+                           generator=torch.Generator(device=dev).manual_seed(
+                               SEED), device=dev)
+    batch = {"tokens": tokens}
+    struct = model_struct(lcfg)
+
+    def bf16_params(m=None, cfg=None):
+        return init_params(struct, torch.Generator(device=dev).manual_seed(
+            SEED), dtype=torch.bfloat16, device=dev, mesh=m,
+            specs=None if m is None else param_pspecs(struct, cfg, m))
+
+    ref = None
+    if rank == 0:
+        cfg1 = prefill_config("llama3.2-1b", attn_impl="flash")
+        model1 = Transformer(cfg1, bf16_params())
+        ref = prefill(model1, cfg1, batch)[0]
+        del model1
+        torch.cuda.empty_cache()
+    dist.barrier()
+    cfg = prefill_config("llama3.2-1b", attn_impl="flash", mesh=mesh,
+                         batch=PREFILL_B)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = Transformer(cfg, bf16_params(mesh, cfg))
+    out["weights"] = torch.cuda.memory_allocated() - base
+    mine = local_batch(batch, cfg, mesh)
+    prefill(model, cfg, mine)                           # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    comm.STATS.reset()
+    ops.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(model, cfg, mine)
+    torch.cuda.synchronize()
+    out.update(wall=time.perf_counter() - t0,
+               k3_launches=ops.flash_attention.launches,
+               peak=torch.cuda.max_memory_allocated() - base,
+               comm=comm.STATS.as_dict())
+    k0 = caches[0]["0"]["k"]
+    out["cache"] = {"placements": str(k0.placements),
+                    "local_shape": list(k0.to_local().shape),
+                    "global_shape": list(k0.shape)}
+    out["cfg"] = {k: getattr(cfg, k) for k in (
+        "batch_axes", "act_shard", "kv_shard", "score_shard", "attn_dtype",
+        "attn_impl")}
+    full = full_tensor(logits)[..., :lcfg.vocab_size]     # padded vocab
+    finite = bool(torch.isfinite(full).all())
+    if rank == 0:
+        out["logits_max_abs_err"] = max_err(full, ref)
+        out["ref_logits_max_abs"] = ref.abs().max().item()
+    out["finite"] = finite
+    del full, ref, caches, logits, model
+    torch.cuda.empty_cache()
+
+    # [dist_elastic], restore: the 4 ranks' (2, 2) checkpoint onto the
+    # survivors' mesh; each leaf bit-equal to the same draw made on it
+    cfg32 = get_config("llama3.2-1b")
+    new = survivors_mesh(list(range(world)), ("data", "model"), 2, dev)
+    specs = param_pspecs(struct, cfg32, new)
+    like = tree_map(lambda p: torch.empty(p.shape, device="meta"), struct)
+    t0 = time.perf_counter()
+    got = restore_checkpoint(ckpt, 1, like, shardings=specs, mesh=new)
+    restore_s = time.perf_counter() - t0
+    want = init_params(struct, torch.Generator(device=dev).manual_seed(SEED),
+                       device=dev, mesh=new, specs=specs)
+    equal = placed = 0
+    for g_, w_, s_ in zip(tree_leaves(got), tree_leaves(want),
+                          tree_leaves(specs), strict=True):
+        equal += bool(torch.equal(g_.to_local(), w_.to_local()))
+        placed += list(g_.placements) == placements(new, s_)
+    out["elastic"] = {"mesh": list(new.mesh.shape), "leaves":
+                      len(tree_leaves(got)), "bit_equal": equal,
+                      "placed_as_specified": placed,
+                      "restore_s": restore_s}
+    return out
+
+
+def dist_phases(*, launches) -> dict:
+    """The distribution phases: ranks spawned by this script on the one
+    card, (1, 1) over NCCL, (2, 2) and (1, 2) over gloo (NCCL refuses two
+    ranks on one GPU).  Returns the K3 numbers of [dist_prefill]."""
+    from repro_torch.launch.mesh import spawn_world
+
+    torch.cuda.empty_cache()
+    ck = ROOT / "build" / "dist_elastic"
+    shutil.rmtree(ck, ignore_errors=True)
+    gb = 1e9
+
+    t0 = time.perf_counter()
+    flip = _adamw_flip_bound(DIST_TRAIN_STEPS, DIST_TRAIN_LR)
+    [r1] = spawn_world(_dist_world1, 1, device="cuda")
+    phase("dist_nccl1", arch="llama3.2-1b", mesh="(1, 1)",
+          backend=r1["backend"], steps=DIST_TRAIN_STEPS,
+          tokens=f"{DIST_TRAIN_B}x{DIST_TRAIN_S}",
+          losses=",".join(f"{x:.6f}" for x, _ in r1["rows"]),
+          losses_one_rank=",".join(f"{x:.6f}" for x, _ in r1["ref_rows"]),
+          loss_gnorm_max_rel_err=f"{r1['rel']:.3e}",
+          loss_gnorm_bit_equal=r1["bit_equal_metrics"],
+          params_max_abs_err=f"{r1['abs_err']:.3e}",
+          params_worst_leaf_norm_rel_err=f"{r1['norm_rel']:.3e}",
+          params_bit_equal_leaves=r1["equal"],
+          state_gb=f"{r1['state'] / gb:.3f}",
+          step_s=",".join(f"{w:.3f}" for w in r1["walls"]),
+          collectives=json.dumps(r1["comm"]["by_op"]),
+          wall_s=f"{time.perf_counter() - t0:.1f}")
+    check(r1["backend"] == "nccl", f"dist_nccl1 ran over {r1['backend']}")
+    check(r1["rel"] <= DIST_TRAIN_RTOL and r1["norm_rel"] <= DIST_TRAIN_RTOL
+          and r1["abs_err"] <= flip,
+          f"dist_nccl1: losses/grad norms {r1['rel']}, params "
+          f"{r1['norm_rel']} in norm, {r1['abs_err']} at most")
+
+    t0 = time.perf_counter()
+    r4 = spawn_world(_dist_world4, 4, str(ck), device="cuda")
+    a = r4[0]
+    for r, res in enumerate(r4):
+        phase("dist_train", rank=r, backend=res["backend"],
+              mesh=tuple(res["mesh"]), state_gb=f"{res['state'] / gb:.3f}",
+              peak_gb=f"{res['peak'] / gb:.3f}",
+              step_s=",".join(f"{w:.3f}" for w in res["walls"]),
+              collectives=res["comm"]["calls"],
+              collective_gb=f"{res['comm']['bytes'] / gb:.3f}")
+    phase("dist_train", arch="llama3.2-1b", mesh="(data 2, model 2)",
+          dtype="float32", remat="full", steps=DIST_TRAIN_STEPS,
+          tokens=f"{DIST_TRAIN_B}x{DIST_TRAIN_S}",
+          losses=",".join(f"{x:.6f}" for x, _ in a["rows"]),
+          losses_one_rank=",".join(f"{x:.6f}" for x, _ in a["ref_rows"]),
+          grad_norms=",".join(f"{g:.6f}" for _, g in a["rows"]),
+          loss_gnorm_max_rel_err=f"{a['rel']:.3e}", rtol=DIST_TRAIN_RTOL,
+          params_worst_leaf_norm_rel_err=f"{a['norm_rel']:.3e}",
+          params_max_abs_err=f"{a['abs_err']:.3e}",
+          params_max_err_rel_to_leaf_max=f"{a['leaf_rel']:.3e}",
+          sign_flip_bound=f"{flip:.3e}",
+          params_bit_equal_leaves=f"{a['equal']}/{a['leaves']}",
+          one_rank_state_gb=f"{a['ref_state'] / gb:.3f}",
+          collectives_by_op=json.dumps(a["comm"]["by_op"]),
+          wall_note="gloo through host memory on one card, not NVLink")
+    check(all(r["rows"] == a["rows"] for r in r4),
+          "dist_train: the ranks report different losses")
+    check(a["rel"] <= DIST_TRAIN_RTOL and a["norm_rel"] <= DIST_TRAIN_RTOL
+          and a["abs_err"] <= flip,
+          f"dist_train: losses/grad norms {a['rel']}, params "
+          f"{a['norm_rel']} in norm, {a['abs_err']} at most")
+    check(all(r["state"] <= 0.3 * a["ref_state"] for r in r4),
+          "dist_train: a rank's resident state is not near a quarter")
+    c = a["compress"]
+    wire = sum(b for _, b in c["wire"]["by_op"].values())
+    phase("dist_compress", ranks=4, shape=DIST_COMPRESS_SHAPE,
+          rel_err=f"{c['rel_err']:.4e}", bound=0.05,
+          equal_to_cpu=c["equal_cpu"],
+          cpu_max_abs_diff=f"{c['cpu_max_abs_diff']:.3e}",
+          wire_bytes_per_rank=wire, by_op=json.dumps(c["wire"]["by_op"]),
+          f32_ring_bytes_per_rank=2 * 4 * c["n"],
+          ratio=f"{2 * 4 * c['n'] / wire:.3f}", wall_s=f"{c['wall_s']:.3f}")
+    check(all(r["compress"]["rel_err"] < 0.05 and r["compress"]["equal_cpu"]
+              for r in r4), "dist_compress: error or card/CPU mismatch")
+    world4_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    r2 = spawn_world(_dist_world2, 2, str(ck), device="cuda")
+    shutil.rmtree(ck, ignore_errors=True)
+    b = r2[0]
+    for r, res in enumerate(r2):
+        launches["flash_attention"][f"llama3.2-1b dist_prefill rank {r}"] = \
+            res["k3_launches"]
+        phase("dist_prefill", rank=r, backend=res["backend"],
+              k3_launches=res["k3_launches"], wall_s=f"{res['wall']:.4f}",
+              weights_gb=f"{res['weights'] / gb:.3f}",
+              peak_gb=f"{res['peak'] / gb:.3f}",
+              collectives=res["comm"]["calls"],
+              collective_gb=f"{res['comm']['bytes'] / gb:.3f}",
+              cache=json.dumps(res["cache"]))
+    rtol = PREFILL_LOGITS_RTOL[torch.bfloat16]
+    phase("dist_prefill", arch="llama3.2-1b", mesh="(data 1, model 2)",
+          tokens=f"{PREFILL_B}x{PREFILL_S}", params="bf16",
+          cfg=json.dumps(b["cfg"]),
+          logits_max_abs_err=f"{b['logits_max_abs_err']:.3e}",
+          ref_logits_max_abs=f"{b['ref_logits_max_abs']:.3e}", rtol=rtol)
+    check(all(r["k3_launches"] == 16 and r["finite"] for r in r2),
+          "dist_prefill: a rank did not launch K3 16 times")
+    check(b["logits_max_abs_err"] <= rtol * b["ref_logits_max_abs"],
+          f"dist_prefill: logits differ by {b['logits_max_abs_err']}")
+    check(all(r["cache"]["placements"] == "(Shard(dim=1), Shard(dim=3))"
+              and r["cache"]["local_shape"][3] == 4 for r in r2),
+          f"dist_prefill: caches {b['cache']}")
+    e = b["elastic"]
+    phase("dist_elastic", saved="(2, 2) by 4 ranks", restored=tuple(e["mesh"]),
+          leaves=e["leaves"], bit_equal=e["bit_equal"],
+          placed_as_specified=e["placed_as_specified"],
+          save_s=f"{a['save_s']:.2f}", restore_s=f"{e['restore_s']:.2f}")
+    check(all(r["elastic"]["bit_equal"] == e["leaves"]
+              and r["elastic"]["placed_as_specified"] == e["leaves"]
+              for r in r2), f"dist_elastic: {e}")
+    phase("dist", world4_s=f"{world4_s:.1f}",
+          world2_s=f"{time.perf_counter() - t0:.1f}")
+    return {"k3_launches_per_rank": [r["k3_launches"] for r in r2],
+            "prefill_wall_s": [r["wall"] for r in r2]}
+
+
 def train_flops(cfg, B: int, S: int) -> float:
     """FLOPs of one training step of a dense decoder with remat="full":
     forward (2 a weight and token, 4·S·H·hd a token and layer for the
@@ -1436,6 +1875,7 @@ def main() -> int:
                         ("llama3.2-1b", "recurrentgemma-2b", "rwkv6-3b"))
     B, S = PREFILL_B, PREFILL_S
     llama_attn = (lcfg.n_heads, lcfg.n_kv_heads, lcfg.hd)
+    llama_tp2_attn = (lcfg.n_heads // 2, lcfg.n_kv_heads // 2, lcfg.hd)
     rgemma_attn = (gcfg.n_heads, gcfg.n_kv_heads, gcfg.hd)
     # hd 128 with GQA 4:1 (llama3-8b's 32/8 heads: no config of the repo
     # has it), and gemma3-4b's layers (d 2560 over 8 heads is hd 320, 4 kv
@@ -1461,6 +1901,8 @@ def main() -> int:
     attn_cases = [
         ("llama_causal_f32", B, S, *llama_attn, True, 0, torch.float32),
         ("llama_causal_bf16", B, S, *llama_attn, True, 0, torch.bfloat16),
+        # a rank's heads in [dist_prefill]: llama3.2-1b at model 2
+        ("llama_tp2_bf16", B, S, *llama_tp2_attn, True, 0, torch.bfloat16),
         ("window_s/8", 2, S // 2, *llama_attn, True, S // 8, torch.bfloat16),
         ("non_causal", 2, S // 4, *llama_attn, False, 0, torch.float32),
         ("ragged", 2, RAGGED_S, *llama_attn, True, 0, torch.float32),
@@ -2575,6 +3017,9 @@ def main() -> int:
     # 5k. training on the card ------------------------------------------------
     train_phases(run_path=run_path, dev=dev)
 
+    # 5l. distribution: ranks sharing the card ---------------------------------
+    dist_numbers = dist_phases(launches=launches)
+
     # 6. kernel times at the main paths' shapes ------------------------------
     def attention_times(B, S, H, K, hd, window):
         q, k, v = qkv(B, S, H, K, hd, torch.bfloat16)
@@ -2608,6 +3053,7 @@ def main() -> int:
                 "library_ms": library_ms}
 
     attn_llama = attention_times(PREFILL_B, PREFILL_S, *llama_attn, 0)
+    attn_tp2 = attention_times(PREFILL_B, PREFILL_S, *llama_tp2_attn, 0)
     attn_rgemma = attention_times(PREFILL_B, PREFILL_S, *rgemma_attn,
                                   gcfg.window_size)
     attn_hd128 = attention_times(PREFILL_B, PREFILL_S, *hd128_attn, 0)
@@ -2710,6 +3156,8 @@ def main() -> int:
          "launches": sum(launches["flash_attention"].values()),
          "launches_by_path": launches["flash_attention"],
          "max_abs_err": errs["llama_causal_bf16"], **attn_llama,
+         "hd64_tp2_rank": {"max_abs_err": errs["llama_tp2_bf16"],
+                           **attn_tp2, **dist_numbers},
          "hd256": {"max_abs_err": errs["rgemma_bf16"], **attn_rgemma},
          "hd128": {"max_abs_err": errs["hd128_bf16"], **attn_hd128},
          "hd320": {"max_abs_err": errs["gemma3_local_bf16"],

@@ -1,17 +1,27 @@
-"""Atomic, async checkpointing (port of ``repro.checkpoint.ckpt``), in the
-JAX package's on-disk layout, one directory per step::
+"""Sharded, atomic, async checkpointing (port of ``repro.checkpoint.ckpt``),
+in the JAX package's on-disk layout, one directory per step::
 
     <dir>/step_000123/
-        manifest.json            # leaf keys, shapes and dtypes
-        proc00.npz               # the leaves
+        manifest.json            # leaf keys, global shapes and dtypes
+        proc00.npz               # this process's shards
+        ...
         COMMIT                   # written last: partial ckpts never load
 
 The leaves are those of the saved tree in the JAX package's order (dict
-keys sorted, lists in order: the stacked segment leaves of a param tree),
-each stored whole under ``leaf%05d__full``.  Either package restores an
-f32 or int32 checkpoint that the other wrote.  One card holds every leaf
-whole, so there is no sharding to restore; a checkpoint the JAX package
-wrote from sharded arrays (keys tagged with slices) is reassembled.
+keys sorted, lists in order: the stacked segment leaves of a param tree).
+A whole tensor is stored under ``leaf%05d__full`` (by rank 0); a DTensor
+leaf as each rank's shard under the JAX package's per-shard tag
+(``leaf%05d__0-64_-``: each dimension's ``start-stop``, or ``-`` where it
+is whole), one copy of each shard (the replica at coordinate 0 of the
+mesh dimensions that replicate it writes it).  The layout is
+mesh-agnostic: a restore reassembles each global leaf and places it on
+any mesh, or whole.  Either package restores an f32 or int32 checkpoint
+that the other wrote, sharded or not.
+
+With several processes each rank moves its file into the step directory
+and leaves a ``done`` marker of that save; rank 0 writes the manifest and
+``COMMIT`` once every rank's marker is there (no collective: the saves
+may run on the manager's writer thread).
 
 bf16 leaves are stored as the JAX package stores them: their bits as
 2-byte voids (numpy has no bf16 of its own).  This module reads them back,
@@ -27,6 +37,7 @@ import os
 import re
 import shutil
 import threading
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
@@ -54,29 +65,86 @@ def _dtype_name(a: np.ndarray) -> str:
     return "bfloat16" if a.dtype.kind == "V" else a.dtype.name
 
 
-def save_checkpoint(ckpt_dir: str, step: int, tree) -> str:
-    """Write one checkpoint of a tree of tensors (or numpy arrays) as
-    process 0, the one process; returns the step directory path."""
-    step_dir = os.path.join(ckpt_dir, f"step_{step:09d}")
-    tmp_dir = step_dir + ".tmp0"
-    os.makedirs(tmp_dir, exist_ok=True)
-    arrays: dict[str, np.ndarray] = {}
-    meta: dict = {"treedef": repr(tree_map(lambda _: "*", tree)),
-                  "leaves": [], "step": step}
-    for i, leaf in enumerate(tree_leaves(tree)):
-        a = _host(leaf)
-        meta["leaves"].append({"key": _key(i), "shape": list(a.shape),
-                               "dtype": _dtype_name(a)})
-        arrays[f"{_key(i)}__full"] = a
+def _shard_tag(t) -> str | None:
+    """The JAX package's tag of this rank's shard of a DTensor, or None
+    when another rank writes the same shard (a replica)."""
+    mesh = t.device_mesh
+    coord = mesh.get_coordinate()
+    start = [0] * t.dim()
+    extent = list(t.shape)
+    for i, p in enumerate(t.placements):
+        if not p.is_shard():
+            if coord[i] != 0:
+                return None
+            continue
+        extent[p.dim] //= mesh.size(i)
+        start[p.dim] += coord[i] * extent[p.dim]
+    return "_".join(
+        f"{a}-{a + n}" if n != full else "-"
+        for a, n, full in zip(start, extent, t.shape)) or "full"
 
-    np.savez(os.path.join(tmp_dir, "proc00.npz"), **arrays)
-    with open(os.path.join(tmp_dir, "manifest.json"), "w") as f:
-        json.dump(meta, f)
-    # single-process commit protocol
+
+def _snapshot(tree, process_index: int) -> tuple[dict, list]:
+    """(arrays to write, manifest entries) of this process's part of a
+    tree: host copies, which later in-place updates do not reach."""
+    arrays: dict[str, np.ndarray] = {}
+    leaves: list = []
+    for i, leaf in enumerate(tree_leaves(tree)):
+        if hasattr(leaf, "device_mesh"):
+            tag = _shard_tag(leaf)
+            a = _host(leaf.to_local())
+            if tag is not None:
+                arrays[f"{_key(i)}__{tag}"] = a
+        else:
+            a = _host(leaf)
+            if process_index == 0:
+                arrays[f"{_key(i)}__full"] = a
+        leaves.append({"key": _key(i), "shape": list(leaf.shape),
+                       "dtype": _dtype_name(a)})
+    return arrays, leaves
+
+
+def save_checkpoint(ckpt_dir: str, step: int, tree, *,
+                    process_index: int = 0, process_count: int = 1) -> str:
+    """Write one checkpoint of a tree of tensors, DTensors or numpy arrays
+    as process ``process_index`` of ``process_count``; returns the step
+    directory path."""
+    return _write(ckpt_dir, step, repr(tree_map(lambda _: "*", tree)),
+                  _snapshot(tree, process_index), process_index,
+                  process_count, 0)
+
+
+def _write(ckpt_dir: str, step: int, treedef: str, snap, process_index: int,
+           process_count: int, save_id: int) -> str:
+    """Write a snapshot; ``save_id`` tells apart two saves of one step
+    (a manager's count of its saves: the ranks save in the same order)."""
+    step_dir = os.path.join(ckpt_dir, f"step_{step:09d}")
+    tmp_dir = step_dir + f".tmp{process_index}"
+    os.makedirs(tmp_dir, exist_ok=True)
+    arrays, leaves = snap
+    meta: dict = {"treedef": treedef, "leaves": leaves, "step": step}
+
+    np.savez(os.path.join(tmp_dir, f"proc{process_index:02d}.npz"), **arrays)
     os.makedirs(step_dir, exist_ok=True)
     for name in os.listdir(tmp_dir):
         os.replace(os.path.join(tmp_dir, name), os.path.join(step_dir, name))
     shutil.rmtree(tmp_dir, ignore_errors=True)
+    with open(os.path.join(step_dir, f"done{process_index:02d}.{save_id}"),
+              "w") as f:
+        f.write("ok")
+    if process_index != 0:
+        return step_dir
+    done = [os.path.join(step_dir, f"done{r:02d}.{save_id}")
+            for r in range(process_count)]
+    deadline = time.monotonic() + 600
+    while not all(os.path.exists(d) for d in done):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{step_dir}: not every rank saved")
+        time.sleep(0.05)
+    with open(os.path.join(step_dir, "manifest.json"), "w") as f:
+        json.dump(meta, f)
+    for d in done:
+        os.remove(d)
     with open(os.path.join(step_dir, "COMMIT"), "w") as f:
         f.write("ok")
     return step_dir
@@ -112,41 +180,70 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, like_tree):
-    """The checkpoint's tree, laid out as ``like_tree``, each leaf with its
-    like's shape, dtype and device."""
+def restore_checkpoint(ckpt_dir: str, step: int, like_tree, *,
+                       shardings=None, mesh=None):
+    """The checkpoint's tree, laid out as ``like_tree``: each leaf
+    reassembled whole from the shards on disk, with its like's shape and
+    dtype, then placed: as a DTensor on ``mesh`` laid out by the
+    PartitionSpec at its place in ``shardings``; else like its like (a
+    DTensor like on the like's mesh and placements, a tensor on its
+    device)."""
     step_dir = os.path.join(ckpt_dir, f"step_{step:09d}")
     if not os.path.exists(os.path.join(step_dir, "COMMIT")):
         raise FileNotFoundError(f"no committed checkpoint at {step_dir}")
-    data: dict[str, np.ndarray] = {}
-    for name in sorted(os.listdir(step_dir)):
-        if name.endswith(".npz"):
-            with np.load(os.path.join(step_dir, name)) as z:
-                for k in z.files:
-                    data[k] = z[k]
-
-    out = []
-    for i, like in enumerate(tree_leaves(like_tree)):
-        full = torch.zeros(like.shape, dtype=like.dtype)
-        found = False
-        for k, v in data.items():
-            if not k.startswith(_key(i) + "__"):
-                continue
-            tag = k.split("__", 1)[1]
-            full[_parse_tag(tag, like.shape)] = _tensor(v).to(like.dtype)
-            found = True
-        if not found:
-            raise FileNotFoundError(f"leaf {i} missing from {step_dir}")
-        out.append(full.to(like.device))
+    likes = tree_leaves(like_tree)
+    specs = (tree_leaves(shardings) if shardings is not None
+             else [None] * len(likes))
+    files = [np.load(os.path.join(step_dir, name))
+             for name in sorted(os.listdir(step_dir))
+             if name.endswith(".npz")]
+    try:
+        index: dict[str, list] = {}
+        for z in files:
+            for k in z.files:
+                index.setdefault(k.split("__", 1)[0], []).append((z, k))
+        out = []
+        for i, (like, spec) in enumerate(zip(likes, specs, strict=True)):
+            full = torch.zeros(like.shape, dtype=like.dtype)
+            if _key(i) not in index:
+                raise FileNotFoundError(f"leaf {i} missing from {step_dir}")
+            for z, k in index[_key(i)]:
+                tag = k.split("__", 1)[1]
+                full[_parse_tag(tag, like.shape)] = _tensor(z[k]).to(
+                    like.dtype)
+            out.append(_place(full, like, spec, mesh))
+    finally:
+        for z in files:
+            z.close()
     return tree_unflatten(like_tree, out)
+
+
+def _place(full: torch.Tensor, like, spec, mesh):
+    if spec is not None:
+        from repro_torch.sharding.specs import distribute
+        return distribute(full.to(mesh.device_type), mesh, spec)
+    if hasattr(like, "device_mesh"):
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.sharding.specs import local_chunk
+        local = local_chunk(full.to(like.to_local().device),
+                            like.device_mesh, like.placements)
+        return DTensor.from_local(local, like.device_mesh, like.placements,
+                                  run_check=False, shape=full.shape,
+                                  stride=full.stride())
+    return full.to(like.device)
 
 
 class CheckpointManager:
     """Async save + keep-last-k retention."""
 
-    def __init__(self, ckpt_dir: str, *, keep: int = 3):
+    def __init__(self, ckpt_dir: str, *, keep: int = 3,
+                 process_index: int = 0, process_count: int = 1):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
+        self.process_index = process_index
+        self.process_count = process_count
+        self._saves = 0
         self._pool = ThreadPoolExecutor(max_workers=1)
         self._last: Future | None = None
         self._lock = threading.Lock()
@@ -154,11 +251,16 @@ class CheckpointManager:
     def save(self, step: int, tree) -> Future:
         # snapshot to host memory synchronously (the caller updates these
         # tensors in place in its next step); only the disk write is async
-        host_tree = tree_map(_host, tree)
+        snap = _snapshot(tree, self.process_index)
+        treedef = repr(tree_map(lambda _: "*", tree))
+        self._saves += 1
+        save_id = self._saves
 
         def work():
-            save_checkpoint(self.ckpt_dir, step, host_tree)
-            self._gc()
+            _write(self.ckpt_dir, step, treedef, snap, self.process_index,
+                   self.process_count, save_id)
+            if self.process_index == 0:
+                self._gc()
             return step
 
         with self._lock:

@@ -36,10 +36,12 @@ class P:
 
 
 def tree_map(fn, tree):
-    """Map ``fn`` over the leaves of a tree of dicts and lists."""
+    """Map ``fn`` over the leaves of a tree of dicts and lists (a
+    :class:`PartitionSpec` is a leaf)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not isinstance(tree,
+                                                          PartitionSpec):
         return [tree_map(fn, t) for t in tree]
     return fn(tree)
 
@@ -60,14 +62,26 @@ def tree_leaves(tree) -> list:
 
 
 def init_params(struct, generator: torch.Generator | None,
-                dtype=torch.float32, device=None):
+                dtype=torch.float32, device=None, *, mesh=None, specs=None):
     """Materialize a random param tree from a structure tree.
 
     Normal leaves draw from ``generator`` (which must live on ``device``)
     with the JAX package's std rule: ``leaf.scale`` if set, else 0.02 for
     vectors and ``min(0.02, shape[0] ** -0.5)`` for matrices.  A tree of
-    zeros and ones (a decode cache) needs no generator."""
+    zeros and ones (a decode cache) needs no generator.
+
+    With a ``DeviceMesh`` and a tree of :class:`PartitionSpec` (``specs``)
+    each leaf is drawn whole, in the same order and so with the same
+    values as on one device, and becomes at once a DTensor holding this
+    rank's shard: one whole leaf at a time is resident."""
     dev = resolve(device)
+    if mesh is not None:
+        from repro_torch.sharding.specs import distribute
+        leaves = [distribute(init_params(leaf, generator, dtype, dev), mesh,
+                             spec)
+                  for leaf, spec in zip(tree_leaves(struct),
+                                        tree_leaves(specs), strict=True)]
+        return tree_unflatten(struct, leaves)
 
     def make(leaf: P):
         dt = getattr(torch, leaf.dtype) if leaf.dtype else dtype
@@ -102,6 +116,46 @@ class Params(nn.Module):
                     name, nn.Parameter(t, requires_grad=False))
 
 
+class PartitionSpec(tuple):
+    """A torch-free copy of ``jax.sharding.PartitionSpec``: one entry per
+    tensor dimension, each ``None`` (replicated), a mesh axis name, or a
+    tuple of mesh axis names (sharded major to minor)."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple(self)!r}"
+
+
+def partition_specs(struct, rules: dict):
+    """Logical-axis -> mesh-axis mapping, e.g. {"mlp": "model",
+    "embed": "data", "vocab": "model"}.  Unknown axes are replicated.
+    A mesh axis may appear at most once per spec; later repeats replicate."""
+    def mk(leaf: P):
+        used: set = set()
+        spec = []
+        for ax in leaf.axes:
+            m = rules.get(ax)
+            flat = tuple(m) if isinstance(m, (tuple, list)) else (m,)
+            if m is None or any(f in used for f in flat if f):
+                spec.append(None)
+            else:
+                used.update(f for f in flat if f)
+                spec.append(m if not isinstance(m, list) else tuple(m))
+        return PartitionSpec(*spec)
+    return tree_map(mk, struct)
+
+
+def sharded_zeros_like_specs(struct, dtype=torch.float32, device=None):
+    """A tree of zeros laid out as the structure tree ``struct``."""
+    dev = resolve(device)
+    return tree_map(
+        lambda leaf: torch.zeros(
+            leaf.shape, dtype=getattr(torch, leaf.dtype) if leaf.dtype
+            else dtype, device=dev), struct)
+
+
 def param_count(struct) -> int:
     return sum(int(np.prod(leaf.shape)) for leaf in tree_leaves(struct))
 
@@ -116,9 +170,12 @@ GLOBAL, LOCAL, SWA, RECURRENT, RWKV = "global", "local", "swa", "recurrent", "rw
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Field for field the JAX package's ``ModelConfig``: the sharding and
-    dry-run knobs are kept so configs compare equal, and are read by nothing
-    in this port."""
+    """Field for field the JAX package's ``ModelConfig``, so configs compare
+    equal.  The sharded model reads the sharding knobs (``batch_axes``,
+    ``act_shard``, ``score_shard``, ``kv_shard``); ``tp_impl``'s two
+    values are one path here (``models/shardmap_tp.py``), and the dry-run
+    knobs (``rwkv_unroll``, ``scan_layers``) are read by nothing in this
+    port."""
     name: str
     family: str                   # dense | moe | hybrid | rwkv | encoder | vlm
     n_layers: int

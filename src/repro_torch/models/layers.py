@@ -4,28 +4,44 @@ gated MLP, embeddings and the LM head.
 
 Each function takes its parameters as a :class:`~repro_torch.models.base.Params`
 module laid out like the JAX package's param dict (``params.wq`` for
-``params["wq"]``).  The JAX package's sharding constraints are no-ops on one
-device and have no counterpart here.
+``params["wq"]``).  On a mesh the blocks take a
+:class:`~repro_torch.sharding.layout.Layout` (``lay``) and compute on
+this rank's shards with explicit collectives at the places of the JAX
+package's sharding constraints (``shard_act``, the prefill kv pins;
+``_attention_tp`` says why ``_score_constraint`` needs none); without one
+(one device) those places are no-ops, as the constraints are in the JAX
+package when ``cfg.batch_axes`` is empty.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.sharding import comm
+from repro_torch.sharding.layout import (fetch, seq_combine, seq_gather,
+                                         seq_rows, tp_sharded)
 
 from .base import LOCAL, SWA, ModelConfig, P
+
+
+def _w(params, name: str, lay, **kw):
+    """Parameter ``name`` as this rank computes with it (see
+    :func:`~repro_torch.sharding.layout.fetch`); itself off the mesh."""
+    p = getattr(params, name)
+    return p if lay is None else fetch(p, lay, **kw)
 
 
 def rmsnorm_struct(d: int):
     return {"scale": P((d,), ("embed",), init="ones")}
 
 
-def rmsnorm(params, x, eps: float):
+def rmsnorm(params, x, eps: float, lay=None):
     dt = x.dtype
     x = x.float()
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
-    out = x * torch.rsqrt(var + eps) * params.scale.float()
+    out = x * torch.rsqrt(var + eps) * _w(params, "scale", lay).float()
     return out.to(dt)
 
 
@@ -77,6 +93,19 @@ def attn_mask(q_pos, k_pos, *, causal: bool, window: int):
     return m
 
 
+def shard_act(x, lay=None):
+    """Pin a sublayer's output to the residual stream's layout.  In the JAX
+    package a constraint on the TP partial sum, so that GSPMD lowers the
+    combine as a reduce-scatter (``act_shard="seq"``: the sequence split
+    over 'model') rather than an all-reduce and a slice.  Here the
+    combine itself: the partial sum [B/data, S, d] is reduce-scattered on
+    the sequence, or all-reduced when the stream is not split.  No-op
+    off the mesh."""
+    if lay is None:
+        return x
+    return seq_combine(x, lay)
+
+
 def _sdpa(q, k, v, mask, *, scale: float, cfg: ModelConfig):
     """Reference attention.  q:[B,Sq,H,hd] k,v:[B,Sk,K,hd] mask:[Sq,Sk].
 
@@ -105,14 +134,189 @@ def _sdpa(q, k, v, mask, *, scale: float, cfg: ModelConfig):
     return out.to(q.dtype)
 
 
+def _chunked_sdpa(q, k, v, *, cfg: ModelConfig, window: int, causal: bool,
+                  chunk: int = 512):
+    """Divergence-aware chunked attention in plain PyTorch (the kernel's
+    schedule): q is processed in chunks; for windowed layers each chunk
+    attends only to its [start-window+1, start+chunk) KV band, so EMPTY
+    tiles are never computed, and no O(S^2) tensor is materialized.  Under
+    grad each chunk is checkpointed: the backward pass recomputes its
+    scores instead of keeping them.  On a mesh it runs on the rank's own
+    heads (the JAX package's one-per-layer heads-TP pin of q/k/v)."""
+    import torch.utils.checkpoint as ckpt
+
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    if K != H:
+        k = k.repeat_interleave(H // K, dim=2)
+        v = v.repeat_interleave(H // K, dim=2)
+    chunk = min(chunk, S)
+    if S % chunk:
+        chunk = S  # fallback: single chunk
+    nq = S // chunk
+    acc = torch.float32 if cfg.attn_dtype == "f32" else torch.bfloat16
+    scale = torch.tensor(hd ** -0.5, dtype=acc, device=q.device)
+    neg = torch.tensor(-3e38 if acc == torch.float32 else -3e4, dtype=acc,
+                       device=q.device)
+    band = None
+    if window > 0:
+        band = min(S, -(-(window + chunk - 1) // chunk) * chunk)
+
+    def one(i: int):
+        qs = i * chunk
+        qc = q[:, qs:qs + chunk].to(acc)
+        if band is not None:
+            ks0 = min(max(qs + chunk - band, 0), S - band)
+            kc = k[:, ks0:ks0 + band].to(acc)
+            vc = v[:, ks0:ks0 + band].to(acc)
+            kpos = ks0 + torch.arange(band, device=q.device)
+        else:
+            kc, vc = k.to(acc), v.to(acc)
+            kpos = torch.arange(S, device=q.device)
+        qpos = qs + torch.arange(chunk, device=q.device)
+        diff = qpos[:, None] - kpos[None, :]
+        live = torch.ones(diff.shape, dtype=torch.bool, device=q.device)
+        if causal:
+            live &= diff >= 0
+        if window > 0:
+            live &= diff < window
+        s = torch.einsum("bqhe,bshe->bhqs", qc, kc) * scale
+        s = torch.where(live[None, None], s, neg)
+        m = s.amax(dim=-1, keepdim=True)
+        e = torch.exp((s - m).float()).to(acc)
+        rs = 1.0 / torch.clamp_min(e.float().sum(-1, keepdim=True), 1e-30)
+        p = e * rs.to(acc)
+        return torch.einsum("bhqs,bshe->bqhe", p, vc).to(q.dtype)
+
+    if torch.is_grad_enabled():
+        outs = [ckpt.checkpoint(one, i, use_reentrant=False)
+                for i in range(nq)]
+    else:
+        outs = [one(i) for i in range(nq)]
+    return torch.cat(outs, dim=1)
+
+
+def _attend(q, k, v, *, cfg: ModelConfig, window: int, positions,
+            q_positions=None, chunked_ok: bool = True):
+    """Prefill attention of q [B, Sq, H, hd] over k/v [B, S, K, hd]:
+    K3 (``attn_impl="flash"``, causal, every query row), the chunked
+    schedule (``"chunked"``, when ``chunked_ok``) or the dense reference.
+    ``q_positions`` (a rank's own query rows) defaults to ``positions``.
+
+    K3 takes whole query rows only: its causal mask starts at row 0, so
+    ``"flash"`` on a rank's own rows (qseq on a mesh) is refused, not run
+    densely (ROADMAP item 15)."""
+    whole = q_positions is None
+    if cfg.attn_impl == "flash" and cfg.causal:
+        assert whole, ("attn_impl='flash' on a rank's own query rows "
+                       "(score_shard='qseq' on a mesh): K3 has no query-row "
+                       "offset yet (ROADMAP item 15)")
+        return kops.flash_attention(q, k, v, causal=True, window=window)
+    if cfg.attn_impl == "chunked" and chunked_ok and whole:
+        return _chunked_sdpa(q, k, v, cfg=cfg, window=window,
+                             causal=cfg.causal)
+    if cfg.attn_impl not in ("reference", "flash", "chunked"):
+        raise ValueError(f"attn_impl={cfg.attn_impl!r}")
+    pos1 = positions if positions.dim() == 1 else positions[0]
+    qpos = pos1 if whole else q_positions
+    mask = attn_mask(qpos, pos1, causal=cfg.causal, window=window)
+    return _sdpa(q, k, v, mask, scale=cfg.hd ** -0.5, cfg=cfg)
+
+
+def _gqa_block(H: int, K: int, tp: int, r: int) -> tuple[int, int]:
+    """The kv heads [lo, hi) that q heads [r*H/tp, (r+1)*H/tp) read.
+    Contiguous head blocks keep GQA local: rank r holds q heads
+    r*H/tp ... and, when K divides by tp, kv heads r*K/tp ... ."""
+    hl, g = H // tp, H // K
+    assert H % tp == 0 and (hl % g == 0 or g % hl == 0), (H, K, tp)
+    lo, hi = (r * hl) // g, ((r + 1) * hl - 1) // g + 1
+    if K % tp == 0:
+        assert (lo, hi) == (r * K // tp, (r + 1) * K // tp), (H, K, tp)
+    return lo, hi
+
+
+def _attention_tp(params, x, *, cfg: ModelConfig, kind: str, positions,
+                  lay):
+    """Prefill / training attention on a mesh.  x: this rank's residual
+    rows.  Returns (out in the residual layout, this rank's cache shard).
+
+    heads mode (q heads split over 'model', the rules' choice when they
+    divide, and ``cfg.score_shard`` not "qseq"): the sequence is
+    gathered, each rank projects its own q and kv heads (kv heads it
+    shares with other ranks when they do not divide), attends (K3, chunked or dense) and multiplies by its rows of
+    wo; the partial sums meet in ``shard_act``.  qseq mode (heads do not
+    divide; the weights are split on head_dim or not at all): each rank
+    gathers the whole attention weights, projects k/v of every position
+    and q of its own rows only, and attends densely over them (the
+    chunked schedule falls back to dense here, as in the JAX package;
+    K3 takes only whole rows, so ``"flash"`` is refused here while the
+    sequence is split); its output rows need no combine.
+
+    The JAX package's ``_score_constraint`` (the O(S^2) scores pinned to
+    the head axis, or to the query rows for qseq) has no counterpart:
+    a rank computes only its own heads' or its own rows' scores, which is
+    the layout the pin asks for, and no collective touches them."""
+    tp, r = lay.tp, lay.tp_rank
+    window = cfg.window_size if kind in (LOCAL, SWA) else 0
+    h = seq_gather(x, lay)
+    if tp_sharded(params.wq, 1) and cfg.score_shard != "qseq":
+        wq = _w(params, "wq", lay)
+        q = torch.einsum("bsd,dhk->bshk", h, wq.to(h.dtype))
+        k = torch.einsum("bsd,dhk->bshk", h, _w(params, "wk", lay).to(h.dtype))
+        v = torch.einsum("bsd,dhk->bshk", h, _w(params, "wv", lay).to(h.dtype))
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        cache = _kv_pin(k, v, cfg, lay)
+        if not tp_sharded(params.wk, 1):
+            lo, hi = _gqa_block(cfg.n_heads, cfg.n_kv_heads, tp, r)
+            k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+        else:
+            _gqa_block(cfg.n_heads, cfg.n_kv_heads, tp, r)
+        out = _attend(q, k, v, cfg=cfg, window=window, positions=positions)
+        out = torch.einsum("bshk,hkd->bsd", out,
+                           _w(params, "wo", lay).to(h.dtype))
+        return shard_act(out, lay), cache
+    wq, wk, wv, wo = (_w(params, n, lay, model=True)
+                      for n in ("wq", "wk", "wv", "wo"))
+    k = rope(torch.einsum("bsd,dhk->bshk", h, wk.to(h.dtype)), positions,
+             cfg.rope_theta)
+    v = torch.einsum("bsd,dhk->bshk", h, wv.to(h.dtype))
+    pos1 = positions if positions.dim() == 1 else positions[0]
+    qpos = seq_rows(pos1, lay, dim=0)
+    q = rope(torch.einsum("bsd,dhk->bshk", x, wq.to(x.dtype)),
+             qpos if positions.dim() == 1 else seq_rows(positions, lay),
+             cfg.rope_theta)
+    out = _attend(q, k, v, cfg=cfg, window=window, positions=positions,
+                  q_positions=qpos if lay.seq else None, chunked_ok=False)
+    out = torch.einsum("bshk,hkd->bsd", out, wo.to(x.dtype))
+    return out, _kv_pin(k, v, cfg, lay)
+
+
+def _kv_pin(k, v, cfg: ModelConfig, lay):
+    """The prefill kv pin: the per-layer caches leave the layer sharded
+    on the TP axis, kv heads (``kv_shard="heads"``) or head_dim
+    (``"hd"``), so the serving artifact is not replicated.  A rank keeps
+    its shard of k/v of every position of its batch rows; k/v that are
+    already this rank's kv heads are that shard."""
+    if k.shape[2] != cfg.n_kv_heads or cfg.kv_shard not in ("heads", "hd"):
+        return {"k": k, "v": v}
+    dim = 2 if cfg.kv_shard == "heads" else 3
+    return {"k": comm.chunk(k, dim, lay.model),
+            "v": comm.chunk(v, dim, lay.model)}
+
+
 def attention(params, x, *, cfg: ModelConfig, kind: str, positions,
-              kv_cache=None, cache_pos: int | None = None):
+              kv_cache=None, cache_pos: int | None = None, lay=None):
     """Prefill when kv_cache is None; single-step decode otherwise.
 
     Decode: x is [B, 1, d]; kv_cache = dict(k=[B, Smax, K, hd], v=...) and
     cache_pos the position.  The new k/v are written into kv_cache in place
     (the JAX package returns an updated copy); returns (out, kv_cache).
     """
+    if lay is not None:
+        assert kv_cache is None, "decode runs on one device"
+        return _attention_tp(params, x, cfg=cfg, kind=kind,
+                             positions=positions, lay=lay)
     S = x.shape[1]
     scale = cfg.hd ** -0.5
     q = torch.einsum("bsd,dhk->bshk", x, params.wq.to(x.dtype))
@@ -124,16 +328,7 @@ def attention(params, x, *, cfg: ModelConfig, kind: str, positions,
     window = cfg.window_size if kind in (LOCAL, SWA) else 0
 
     if kv_cache is None:
-        if cfg.attn_impl == "flash" and cfg.causal:
-            out = kops.flash_attention(q, k, v, causal=True, window=window)
-        elif cfg.attn_impl in ("reference", "flash"):
-            pos1 = positions if positions.dim() == 1 else positions[0]
-            mask = attn_mask(pos1, pos1, causal=cfg.causal, window=window)
-            out = _sdpa(q, k, v, mask, scale=scale, cfg=cfg)
-        else:
-            raise NotImplementedError(
-                f"attn_impl={cfg.attn_impl!r} is not ported yet "
-                "(ROADMAP.md, Open items, item 12)")
+        out = _attend(q, k, v, cfg=cfg, window=window, positions=positions)
         new_cache = {"k": k, "v": v}
     else:
         # Ring buffer: windowed layers size their cache to the window, so
@@ -175,9 +370,22 @@ def mlp_struct(d: int, ff: int):
     }
 
 
-def mlp(params, x):
-    h = F.silu(x @ params.w_gate.to(x.dtype)) * (x @ params.w_up.to(x.dtype))
-    return h @ params.w_down.to(x.dtype)
+def mlp_partial(params, h, lay=None):
+    """The gated MLP of rows ``h`` that hold every position.  On a mesh
+    w_gate / w_up are column-parallel and w_down row-parallel on 'mlp':
+    the result is this rank's partial sum over 'model'."""
+    h1 = F.silu(h @ _w(params, "w_gate", lay).to(h.dtype)) \
+        * (h @ _w(params, "w_up", lay).to(h.dtype))
+    return h1 @ _w(params, "w_down", lay).to(h.dtype)
+
+
+def mlp(params, x, lay=None):
+    """Gated-SiLU MLP.  On a mesh a TP block: the sequence gathered, the
+    products on this rank's ff columns, the partial sums pinned back to
+    the residual layout (``shard_act``)."""
+    if lay is None:
+        return mlp_partial(params, x)
+    return shard_act(mlp_partial(params, seq_gather(x, lay), lay), lay)
 
 
 # ---------------------------------------------------------------------------
@@ -192,10 +400,35 @@ def embed_struct(cfg: ModelConfig):
     return s
 
 
-def embed(params, tokens, cfg: ModelConfig):
+def lookup(params, tokens, lay=None):
+    """Rows of the token table for ``tokens`` (every position).  On a mesh
+    with the vocab split over 'model' each rank looks up the tokens of its
+    own vocab block and zeros the rest: a partial sum over 'model' that
+    has one nonzero term per row, so its combine is exact.  Returns
+    (rows, partial)."""
+    tok = _w(params, "tok", lay)
+    if lay is None or not tp_sharded(params.tok, 0):
+        return tok[tokens.long()], False
+    n = tok.shape[0]
+    idx = tokens.long() - lay.tp_rank * n
+    hit = (idx >= 0) & (idx < n)
+    rows = tok[idx.clamp(0, n - 1)].masked_fill(~hit[..., None], 0)
+    return rows, True
+
+
+def embed(params, tokens, cfg: ModelConfig, lay=None):
     """Token embedding scaled by sqrt(d_model) in the table's dtype, as the
-    JAX package does (standard Llama does not scale)."""
-    x = params.tok[tokens.long()]
+    JAX package does (standard Llama does not scale).  On a mesh the
+    embedding comes out in the residual layout: the vocab-parallel partial
+    rows combined by ``shard_act`` (this is where the JAX package's
+    gather meets a vocab-sharded table), or this rank's rows looked up
+    from a whole table."""
+    if lay is None:
+        x = params.tok[tokens.long()]
+    elif tp_sharded(params.tok, 0):
+        x = shard_act(lookup(params, tokens, lay)[0], lay)
+    else:
+        x = lookup(params, seq_rows(tokens, lay), lay)[0]
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
 
 
@@ -205,7 +438,16 @@ def head_struct(cfg: ModelConfig):
     return {"w": P((cfg.d_model, cfg.padded_vocab), ("embed", "vocab"))}
 
 
-def lm_logits(head_params, embed_params, x, cfg: ModelConfig):
+def lm_logits(head_params, embed_params, x, cfg: ModelConfig, lay=None):
+    """Logits [.., V].  On a mesh: this rank's residual rows gathered to
+    every position, times its vocab columns (vocab-parallel when the vocab
+    is split over 'model'); the padded vocab is kept, and
+    :func:`cross_entropy` leaves the padding out."""
+    if lay is not None:
+        x = seq_gather(x, lay)
+        if cfg.tie_embeddings:
+            return x @ _w(embed_params, "tok", lay).to(x.dtype).T
+        return x @ _w(head_params, "w", lay).to(x.dtype)
     if cfg.tie_embeddings:
         w = embed_params.tok.to(x.dtype).T
     else:
@@ -214,6 +456,13 @@ def lm_logits(head_params, embed_params, x, cfg: ModelConfig):
     if cfg.padded_vocab != cfg.vocab_size:
         logits = logits[..., :cfg.vocab_size]
     return logits
+
+
+def vocab_sharded(head_params, embed_params, cfg: ModelConfig) -> bool:
+    """Whether the logits' vocab is split over 'model' on a mesh."""
+    if cfg.tie_embeddings:
+        return tp_sharded(embed_params.tok, 0)
+    return tp_sharded(head_params.w, 1)
 
 
 def cross_entropy(logits, labels, mask=None):
@@ -231,3 +480,36 @@ def cross_entropy(logits, labels, mask=None):
         return torch.mean(nll)
     mask = mask.float()
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def cross_entropy_tp(logits, labels, mask, cfg: ModelConfig, lay,
+                     sharded: bool):
+    """This rank's share of the mean CE on a mesh: the shares of all ranks
+    sum to the global mean.  ``logits`` [B/data, S, V/model] (``sharded``)
+    or [B/data, S, V]: the log-sum-exp and the gold logit are summed over
+    'model' (vocab-parallel CE: no logits gather, as the JAX package's
+    one-hot contraction); columns past the vocab (padding) are left out.
+    The count of valid positions is summed over 'data'."""
+    logits = logits.float()
+    n = logits.shape[-1]
+    lo = lay.tp_rank * n if sharded else 0
+    if lo + n > cfg.vocab_size:
+        col = torch.arange(n, device=logits.device) + lo
+        logits = logits.masked_fill(col >= cfg.vocab_size, float("-inf"))
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    if sharded:
+        m = comm.all_reduce(m, lay.model, op=dist.ReduceOp.MAX)
+    s = torch.exp(logits - m).sum(-1)
+    idx = labels.long() - lo
+    hit = (idx >= 0) & (idx < n)
+    gold = torch.gather(logits, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
+    gold = gold.masked_fill(~hit, 0)
+    if sharded:
+        s, gold = comm.psum(s, lay.model), comm.psum(gold, lay.model)
+    nll = torch.log(s) + m[..., 0] - gold
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    count = mask.sum().detach()
+    if lay.batch:
+        count = comm.all_reduce(count, lay.data)
+    share = torch.sum(nll * mask) / torch.clamp(count, min=1.0)
+    return share / (lay.tp * (1 if lay.batch else lay.dp))

@@ -11,8 +11,12 @@ Tokens diverge into expert paths and reconverge at the combine:
 Dispatch is grouped (group = sequence; the whole batch is one group in
 decode): routing, sort, scatter and combine are local to a group.  The JAX
 package vmaps the group functions and pins the group axis to the data
-axes; on one card the groups run in a loop and the expert products take
-all groups at once.  Supports Mixtral-style top-k over E experts and
+axes (``shard_g``); on one card the groups run in a loop and the expert
+products take all groups at once.  On a mesh the groups are this rank's
+batch rows, so ``shard_g``'s layout holds by construction: each rank
+routes its rows' every position, runs its experts (expert-parallel on
+'model' when they divide, else its ff columns of every expert), and the
+partial sums meet in ``shard_act``.  Supports Mixtral-style top-k over E experts and
 DeepSeek-style shared + fine-grained routed experts.
 """
 from __future__ import annotations
@@ -20,8 +24,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import comm
+from repro_torch.sharding.layout import seq_gather, tp_sharded
+
 from .base import ModelConfig, P
-from .layers import mlp, mlp_struct
+from .layers import _w, mlp_partial, mlp_struct, shard_act
 
 
 def moe_struct(cfg: ModelConfig):
@@ -93,17 +100,17 @@ def _combine_group(ex_out, dest, src_token, slot_gate, T: int):
     return out
 
 
-def route(params, xg, cfg: ModelConfig):
+def route(params, xg, cfg: ModelConfig, lay=None):
     """Router softmax and top-k of groups xg [G, T, d]: returns (gates_all
     [G, T, E] f32, gates [G, T, k] renormalized, eidx [G, T, k])."""
-    logits = (xg @ params.router.to(xg.dtype)).float()
+    logits = (xg @ _w(params, "router", lay, model=True).to(xg.dtype)).float()
     gates_all = torch.softmax(logits, dim=-1)
     gates, eidx = _top_k(gates_all, cfg.experts_per_token)
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
     return gates_all, gates, eidx
 
 
-def dispatch(params, x, cfg: ModelConfig):
+def dispatch(params, x, cfg: ModelConfig, lay=None):
     """Routing and dispatch of x [B, S, d]: the groups' expert-path inputs
     [G, E, C, d], each group's (dest, src_token, slot_gate), the router's
     (gates_all, eidx) and C."""
@@ -111,43 +118,63 @@ def dispatch(params, x, cfg: ModelConfig):
     E, k = cfg.n_experts, cfg.experts_per_token
     xg = x if S > 1 else x.reshape(1, B, d)              # [G, T, d]
     C = _capacity(xg.shape[1], cfg)
-    gates_all, gates, eidx = route(params, xg, cfg)
+    gates_all, gates, eidx = route(params, xg, cfg, lay)
     groups = [_dispatch_group(xt, g, e, C, E, k)
               for xt, g, e in zip(xg, gates, eidx)]
     ex_in = torch.stack([g[0] for g in groups]).reshape(len(groups), E, C, d)
     return ex_in, [g[1:] for g in groups], gates_all, eidx, C
 
 
-def moe(params, x, cfg: ModelConfig):
+def moe(params, x, cfg: ModelConfig, lay=None):
     """x: [B, S, d] -> ([B, S, d], aux).  Groups are sequences (S > 1) or
-    the whole batch as one group (decode)."""
+    the whole batch as one group (decode).  On a mesh x is this rank's
+    residual rows and the output comes back in that layout."""
+    if lay is not None:
+        x = seq_gather(x, lay)
     B, S, d = x.shape
     E = cfg.n_experts
-    ex_in, slots, gates_all, eidx, C = dispatch(params, x, cfg)
+    ex_in, slots, gates_all, eidx, C = dispatch(params, x, cfg, lay)
     G, T = ex_in.shape[0], (S if S > 1 else B)
 
-    w_gate = params.w_gate.to(x.dtype)
-    w_up = params.w_up.to(x.dtype)
-    w_down = params.w_down.to(x.dtype)
+    ep = lay is not None and tp_sharded(params.w_gate, 0)
+    if ep:                    # this rank's experts only
+        n = E // lay.tp
+        lo = lay.tp_rank * n
+        ex_in = ex_in[:, lo:lo + n]
+    w_gate = _w(params, "w_gate", lay).to(x.dtype)
+    w_up = _w(params, "w_up", lay).to(x.dtype)
+    w_down = _w(params, "w_down", lay).to(x.dtype)
     h = F.silu(torch.einsum("gecd,edf->gecf", ex_in, w_gate)) \
         * torch.einsum("gecd,edf->gecf", ex_in, w_up)
-    ex_out = torch.einsum("gecf,efd->gecd", h, w_down).reshape(G, E * C, d)
+    ex_out = torch.einsum("gecf,efd->gecd", h, w_down)
+    if ep:                    # the other ranks' experts add nothing here
+        ex_out = torch.cat([
+            ex_out.new_zeros((G, lo, C, d)), ex_out,
+            ex_out.new_zeros((G, E - lo - n, C, d))], dim=1)
+    ex_out = ex_out.reshape(G, E * C, d)
 
     out = torch.stack([_combine_group(eo, *slot, T)
                        for eo, slot in zip(ex_out, slots)])
     out = out.reshape(B, S, d)
 
     if cfg.n_shared_experts:
-        out = out + mlp(params.shared, x.reshape(B * S, d)).reshape(B, S, d)
+        out = out + mlp_partial(params.shared, x.reshape(B * S, d),
+                                lay).reshape(B, S, d)
+    if lay is not None:
+        out = shard_act(out, lay)
 
     aux = load_balance_loss(gates_all.reshape(-1, E),
-                            eidx.reshape(-1, cfg.experts_per_token), E)
+                            eidx.reshape(-1, cfg.experts_per_token), E, lay)
     return out, aux
 
 
-def load_balance_loss(gates_all, eidx, E: int):
-    """Switch-style auxiliary loss: E * sum_e f_e * p_e."""
+def load_balance_loss(gates_all, eidx, E: int, lay=None):
+    """Switch-style auxiliary loss: E * sum_e f_e * p_e.  On a mesh with
+    the batch split, f and p are the means over the global batch."""
     onehot = F.one_hot(eidx[:, 0], E).float()
     f = onehot.mean(0)
     p = gates_all.mean(0)
+    if lay is not None and lay.batch:
+        f = comm.psum(f, lay.data) / lay.dp
+        p = comm.psum(p, lay.data) / lay.dp
     return E * torch.sum(f * p)

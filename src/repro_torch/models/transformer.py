@@ -10,6 +10,14 @@ takes the place of ``lax.scan``.  Dense GLOBAL / LOCAL / SWA, RECURRENT
 (RG-LRU) and RWKV-6 layers are ported, each with a dense or (in an ``moe``
 segment) a mixture-of-experts FFN, behind a token embedding or an audio or
 vision frontend stub.
+
+A param tree of DTensors (a sharded model: ``init_params(mesh=, specs=)``,
+as ``launch/train.py``'s ``build_train_state(mesh=)`` draws it) makes a
+sharded
+:class:`Transformer`: its modules hold this rank's local shards, and
+forward, the loss and the backward pass run on a
+:class:`~repro_torch.sharding.layout.Layout` (``sharding/layout.py`` says
+how the collectives and gradients go).
 """
 from __future__ import annotations
 
@@ -19,10 +27,15 @@ import torch
 import torch.utils.checkpoint as ckpt
 from torch import nn
 
-from .base import GLOBAL, RECURRENT, RWKV, ModelConfig, P, Params, tree_map
+from repro_torch.sharding import comm
+from repro_torch.sharding.layout import Layout, fetch, mark, seq_rows
+
+from .base import (GLOBAL, RECURRENT, RWKV, ModelConfig, P, Params,
+                   tree_leaves, tree_map)
 from .layers import (attention, attention_cache_struct, attention_struct,
-                     cross_entropy, embed, embed_struct, head_struct,
-                     lm_logits, mlp, mlp_struct, rmsnorm, rmsnorm_struct)
+                     cross_entropy, cross_entropy_tp, embed, embed_struct,
+                     head_struct, lm_logits, lookup, mlp, mlp_struct,
+                     rmsnorm, rmsnorm_struct, vocab_sharded)
 from .moe import moe, moe_struct
 from .recurrent import (rglru, rglru_state_struct, rglru_struct,
                         rwkv6_channel_mix, rwkv6_state_struct, rwkv6_struct,
@@ -119,19 +132,26 @@ class Transformer(nn.Module):
     of the tree is what the modules compute with.
 
     The parameters are frozen; :meth:`trainable` makes them require grad,
-    once, for training."""
+    once, for training.
+
+    A tree of DTensors makes a sharded model on their ``DeviceMesh``
+    (``self.mesh``; ``None`` for a model on one device): the modules hold
+    views of this rank's local shards, each marked with the tensor
+    dimension that each mesh dimension splits."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
         self.tree = params
         self.grads = None
-        self.embed = Params(params["embed"])
+        first = tree_leaves(params)[0]
+        self.mesh = getattr(first, "device_mesh", None)
+        self.embed = local_params(params["embed"])
         self.segments = nn.ModuleList(
-            nn.ModuleList(Params(tree_map(lambda t, r=r: t[r], seg_params))
+            nn.ModuleList(local_params(seg_params, layer=r)
                           for r in range(seg["repeat"]))
             for seg, seg_params in zip(_segments(cfg), params["segments"]))
-        self.final_norm = Params(params["final_norm"])
-        self.head = Params(params["head"])
+        self.final_norm = local_params(params["final_norm"])
+        self.head = local_params(params["head"])
 
     def trainable(self) -> dict:
         """Make every parameter require grad, and give it a gradient in the
@@ -150,6 +170,8 @@ class Transformer(nn.Module):
                         continue
                     p = getattr(module, name)
                     p.requires_grad_(True)
+                    if self.mesh is not None:    # a view of the local shard
+                        g = g.to_local()
                     p.grad = g if r is None else g[r]
 
             for name in ("embed", "final_norm", "head"):
@@ -161,36 +183,106 @@ class Transformer(nn.Module):
         return self.grads
 
 
+def _placement_dims(t) -> tuple:
+    """The tensor dimension each mesh dimension of a DTensor shards."""
+    return tuple(p.dim if p.is_shard() else None for p in t.placements)
+
+
+def local_params(tree: dict, layer: int | None = None) -> Params:
+    """A :class:`Params` over a param tree (``layer``: that slice of each
+    stacked leaf).  For a tree of DTensors it holds views of this rank's
+    local shards, each marked with the tensor dimension that each mesh
+    dimension splits (a layer's slice drops the stacked layers dim, which
+    is never sharded)."""
+    def local(t):
+        t = t.to_local() if hasattr(t, "device_mesh") else t
+        return t if layer is None else t[layer]
+
+    module = Params(tree_map(local, tree))
+    _mark(module, tree, layer is not None)
+    return module
+
+
+def _mark(module, tree, stacked: bool):
+    for name, t in tree.items():
+        if isinstance(t, dict):
+            _mark(getattr(module, name), t, stacked)
+        elif hasattr(t, "device_mesh"):
+            dims = _placement_dims(t)
+            if stacked:
+                assert 0 not in dims, (name, dims)
+                dims = tuple(None if d is None else d - 1 for d in dims)
+            mark(getattr(module, name), dims)
+
+
+def layout(params: Transformer, cfg: ModelConfig, seq_len: int):
+    """The :class:`Layout` of a forward of ``seq_len`` positions on the
+    model's mesh (``None`` on one device): the batch split over 'data'
+    when ``cfg.batch_axes`` says so, the residual stream's sequence split
+    over 'model' when ``cfg.act_shard == "seq"`` and it divides.
+
+    The RG-LRU and RWKV-6 layers have no TP rule in the port yet, so a
+    model with them is refused on a mesh (ROADMAP item 15)."""
+    if params.mesh is None:
+        return None
+    mesh = params.mesh
+    assert tuple(mesh.mesh_dim_names) == ("data", "model"), \
+        mesh.mesh_dim_names
+    assert not {RECURRENT, RWKV} & set(cfg.kinds), (
+        f"{cfg.name}: RG-LRU and RWKV-6 layers do not run on a mesh yet "
+        "(ROADMAP item 15)")
+    tp = mesh.size(1)
+    return Layout(mesh, batch=bool(cfg.batch_axes),
+                  seq=(cfg.act_shard == "seq" and seq_len > 1
+                       and seq_len % tp == 0))
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
-def _embed(params: Transformer, cfg: ModelConfig, batch: dict):
+def _embed(params: Transformer, cfg: ModelConfig, batch: dict, lay=None):
     """The input embedding of ``batch``, scaled by sqrt(d_model) in its
     dtype.  The modality frontends are stubs: ``frames`` (audio) are
     projected alone, and take the frames' dtype, so f32 frames run a bf16
     model's layers in f32 as in the JAX package; ``patches`` (vision) are
-    projected, cast to the table's dtype and put ahead of the tokens."""
+    projected, cast to the table's dtype and put ahead of the tokens.
+
+    On a mesh the result is in the residual layout: the token embedding
+    as :func:`~repro_torch.models.layers.embed` makes it, a frontend's
+    every position on each rank, then its rows."""
     if cfg.frontend == "token":
-        return embed(params.embed, batch["tokens"], cfg)
+        return embed(params.embed, batch["tokens"], cfg, lay)
     e = params.embed
+    proj = e.frontend_proj if lay is None else fetch(e.frontend_proj, lay)
     if cfg.frontend == "audio_stub":
         frames = batch["frames"]
-        x = frames @ e.frontend_proj.to(frames.dtype)
+        x = frames @ proj.to(frames.dtype)
     else:
-        tok = e.tok[batch["tokens"].long()]
+        tok, partial = lookup(e, batch["tokens"], lay)
+        if partial:
+            tok = comm.psum(tok, lay.model)
         patches = batch["patches"]
-        patch = patches @ e.frontend_proj.to(patches.dtype)
+        patch = patches @ proj.to(patches.dtype)
         x = torch.cat([patch.to(tok.dtype), tok], dim=1)
+    if lay is not None:
+        x = seq_rows(x, lay)
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                             device=x.device)
 
 
 def _apply_layer(lp, x, *, cfg: ModelConfig, kind: str, is_moe: bool,
-                 positions, cache=None, cache_pos=None):
-    """One residual block.  Returns (x, new_cache, aux)."""
+                 positions, cache=None, cache_pos=None, lay=None):
+    """One residual block.  Returns (x, new_cache, aux).
+
+    On a mesh the attention, MLP and MoE blocks are tensor-parallel and
+    return their output in the residual layout (the JAX package's
+    ``shard_act`` pins on the sublayer outputs and on the sum are the
+    combines inside them; ``cfg.tp_impl`` "shard_map" is the same path,
+    see :mod:`.shardmap_tp`).  The RG-LRU and RWKV-6 layers run on one
+    device only (:func:`layout`)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = rmsnorm(lp.ln1, x, cfg.norm_eps)
+    h = rmsnorm(lp.ln1, x, cfg.norm_eps, lay)
     if kind == RWKV:
         out, tm_state = rwkv6_time_mix(
             lp.tm, h, cfg=cfg,
@@ -209,13 +301,13 @@ def _apply_layer(lp, x, *, cfg: ModelConfig, kind: str, is_moe: bool,
     else:
         out, new_cache = attention(lp.attn, h, cfg=cfg, kind=kind,
                                    positions=positions, kv_cache=cache,
-                                   cache_pos=cache_pos)
+                                   cache_pos=cache_pos, lay=lay)
     x = x + out
-    h2 = rmsnorm(lp.ln2, x, cfg.norm_eps)
+    h2 = rmsnorm(lp.ln2, x, cfg.norm_eps, lay)
     if is_moe:
-        out2, aux = moe(lp.ffn, h2, cfg)
+        out2, aux = moe(lp.ffn, h2, cfg, lay)
     else:
-        out2 = mlp(lp.ffn, h2)
+        out2 = mlp(lp.ffn, h2, lay)
     return x + out2, new_cache, aux
 
 
@@ -244,19 +336,20 @@ def _remat_wrap(fn, cfg: ModelConfig):
     return fn
 
 
-def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
-            return_cache: bool = False):
-    """Full-sequence forward (prefill and training).  ``batch`` holds
-    ``tokens``, or ``frames`` (audio_stub), or ``tokens`` and ``patches``
-    (vision_stub: the logits cover the patches, then the tokens).  Each
-    repeat of a segment's layer pattern is checkpointed as ``cfg.remat``
-    says.
+def _seq_len(cfg: ModelConfig, batch: dict) -> int:
+    if cfg.frontend == "audio_stub":
+        return batch["frames"].shape[1]
+    n = batch["tokens"].shape[1]
+    return n + (batch["patches"].shape[1] if cfg.frontend == "vision_stub"
+                else 0)
 
-    Returns (logits, aux_loss, caches); caches is None unless requested, and
-    is then stacked per segment like the JAX package's scan output.
-    """
-    x = _embed(params, cfg, batch)
-    S = x.shape[1]
+
+def _forward(params: Transformer, cfg: ModelConfig, batch: dict, lay,
+             return_cache: bool):
+    """:func:`forward` on local tensors: on a mesh the logits are this
+    rank's [B/data, S, V/model] and the caches its shards."""
+    S = _seq_len(cfg, batch)
+    x = _embed(params, cfg, batch, lay)
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -270,7 +363,7 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
             for j, kind in enumerate(pattern):
                 x, c, aux = _apply_layer(getattr(lp, str(j)), x, cfg=cfg,
                                          kind=kind, is_moe=is_moe,
-                                         positions=positions)
+                                         positions=positions, lay=lay)
                 new_caches[str(j)] = c
                 aux_sum = aux_sum + aux
             return x, new_caches, aux_sum
@@ -288,15 +381,68 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
                                for name in cs[0]}
                            for j, cs in per_pos.items()})
 
-    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    logits = lm_logits(params.head, params.embed, x, cfg)
+    x = rmsnorm(params.final_norm, x, cfg.norm_eps, lay)
+    logits = lm_logits(params.head, params.embed, x, cfg, lay)
     return logits, aux_total, caches
+
+
+def _as_dtensor(local, lay: Layout, cfg: ModelConfig, shard_dims: dict):
+    """Wrap a rank's output shard as a DTensor: the batch dim (``shard_dims
+    ["batch"]``) on 'data' when the batch is split, and the first of
+    ``shard_dims["model"]`` whose local size is short of ``full`` on
+    'model'."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    pl = [Shard(shard_dims["batch"]) if lay.batch else Replicate(),
+          Replicate()]
+    for dim, full in shard_dims["model"]:
+        if local.shape[dim] * lay.tp == full and lay.tp > 1:
+            pl[1] = Shard(dim)
+            break
+    return DTensor.from_local(local, lay.mesh, pl, run_check=False)
+
+
+def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
+            return_cache: bool = False):
+    """Full-sequence forward (prefill and training).  ``batch`` holds
+    ``tokens``, or ``frames`` (audio_stub), or ``tokens`` and ``patches``
+    (vision_stub: the logits cover the patches, then the tokens).  Each
+    repeat of a segment's layer pattern is checkpointed as ``cfg.remat``
+    says.
+
+    Returns (logits, aux_loss, caches); caches is None unless requested, and
+    is then stacked per segment like the JAX package's scan output.
+
+    On a mesh ``batch`` holds this rank's batch rows (its
+    ``batch_pspec`` slice), and the logits and caches come back as
+    DTensors: logits [B, S, padded vocab] split on the batch over 'data'
+    and on the vocab over 'model' (when the rules split it); attention
+    caches [L, B, S, K, hd] on the batch and on kv heads or head_dim as
+    the kv pin leaves them; recurrent states on the batch.
+    """
+    lay = layout(params, cfg, _seq_len(cfg, batch))
+    logits, aux, caches = _forward(params, cfg, batch, lay, return_cache)
+    if lay is None:
+        return logits, aux, caches
+    logits = _as_dtensor(logits, lay, cfg, {
+        "batch": 0, "model": [(2, cfg.padded_vocab)]})
+    if caches is not None:
+        caches = [{j: {name: _as_dtensor(t, lay, cfg, {
+            "batch": 1, "model": [(3, cfg.n_kv_heads), (4, cfg.hd)]
+            if name in ("k", "v") else []}) for name, t in c.items()}
+            for j, c in seg.items()} for seg in caches]
+    return logits, aux, caches
 
 
 def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict):
     """Scalar loss for one batch; labels/masks per family.  Returns
-    (ce + 0.01 * aux, {"ce", "aux"})."""
-    logits, aux, _ = forward(params, cfg, batch)
+    (ce + 0.01 * aux, {"ce", "aux"}).
+
+    On a mesh (``batch`` this rank's rows) the value is the global loss and
+    the gradient that of this rank's share of it (the vocab-parallel CE
+    share, and 0.01 * aux over the ranks): a backward pass of every rank
+    leaves each weight's global gradient in its shards."""
+    lay = layout(params, cfg, _seq_len(cfg, batch))
+    logits, aux, _ = _forward(params, cfg, batch, lay, False)
     labels = batch["labels"]
     mask = batch.get("loss_mask")
     if cfg.frontend == "vision_stub":
@@ -307,8 +453,16 @@ def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict):
         logits = logits[:, :-1]
         labels = labels[:, 1:]
         mask = None if mask is None else mask[:, 1:]
-    ce = cross_entropy(logits, labels, mask)
-    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+    if lay is None:
+        ce = cross_entropy(logits, labels, mask)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+    ce_share = cross_entropy_tp(logits, labels, mask, cfg, lay,
+                                vocab_sharded(params.head, params.embed, cfg))
+    share = ce_share + 0.01 * aux / lay.world
+    ce = comm.all_reduce(comm.all_reduce(ce_share.detach(), lay.data),
+                         lay.model)
+    total = ce + 0.01 * aux.detach()
+    return share + (total - share).detach(), {"ce": ce, "aux": aux.detach()}
 
 
 # ---------------------------------------------------------------------------
@@ -324,8 +478,9 @@ def decode_step(params: Transformer, cfg: ModelConfig, caches, tokens,
     The MoE layers' aux loss is dropped, as the JAX package's decode step
     drops it.
 
-    Returns (logits [B, 1, V], caches).
+    Returns (logits [B, 1, V], caches).  Decode runs on one device.
     """
+    assert params.mesh is None, "decode runs on one device"
     x = embed(params.embed, tokens, cfg)
     positions = torch.full((1,), cache_pos, dtype=torch.int32,
                            device=x.device)

@@ -7,7 +7,10 @@ one whose gradient is ``None`` as if it were zeros (``torch.optim`` skips
 it, and rounds its correction and decay in another order).
 
 The trees are nested dicts and lists of tensors in the JAX package's
-layout.  The update runs in place: the parameter, ``m`` and ``v`` tensors
+layout, or of DTensors (a sharded model): the moments then take their
+parameters' placements (ZeRO-3, as the JAX package's ``opt_spec``), the
+update runs on each rank's local shards, and the clipping norm is the
+global norm over every shard, each element counted once.  The update runs in place: the parameter, ``m`` and ``v`` tensors
 are overwritten, so a model whose modules share the parameters' storage
 sees the new values; the returned trees are the given ones.  Nothing
 reads a value back to the host.
@@ -19,6 +22,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.models.base import tree_leaves, tree_map
+from repro_torch.sharding import comm
 
 
 @dataclass(frozen=True)
@@ -36,15 +40,40 @@ def adamw_init(params):
         "m": tree_map(torch.zeros_like, params),
         "v": tree_map(torch.zeros_like, params),
         "step": torch.zeros((), dtype=torch.int32,
-                            device=tree_leaves(params)[0].device),
+                            device=_local(tree_leaves(params)[0]).device),
     }
+
+
+def _local(t):
+    """A DTensor's local shard (sharing its storage), a tensor itself."""
+    return t.to_local() if hasattr(t, "device_mesh") else t
+
+
+def _owned(t) -> bool:
+    """Whether this rank counts a DTensor shard in a sum over the mesh:
+    the replica at coordinate 0 of every mesh dimension that replicates
+    it."""
+    coord = t.device_mesh.get_coordinate()
+    return all(coord[i] == 0 for i, p in enumerate(t.placements)
+               if not p.is_shard())
 
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32; ``None`` leaves
-    count as zeros."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree_leaves(tree) if g is not None))
+    count as zeros.  For DTensor leaves each rank sums the shards it owns
+    and the sums are all-reduced over the mesh."""
+    leaves = [g for g in tree_leaves(tree) if g is not None]
+    mesh = getattr(leaves[0], "device_mesh", None)
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in leaves))
+    sq = sum(torch.sum(torch.square(g.to_local().float()))
+             for g in leaves if _owned(g))
+    if not torch.is_tensor(sq):
+        sq = torch.zeros((), device=leaves[0].to_local().device)
+    for i in range(mesh.ndim):
+        sq = comm.all_reduce(sq, mesh.get_group(i))
+    return torch.sqrt(sq)
 
 
 @torch.no_grad()
@@ -61,6 +90,8 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, lr=None):
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state["m"]), tree_leaves(state["v"]),
                           strict=True):
+        p, m, v = _local(p), _local(m), _local(v)
+        g = None if g is None else _local(g)
         g = (torch.zeros_like(p, dtype=torch.float32) if g is None
              else g.float() * scale)
         pf = p.float()

@@ -6,8 +6,7 @@ monitor keeps a rolling window of per-host step times; hosts whose median
 exceeds ``threshold`` x the fleet median are flagged.  Mitigation is data
 rebalancing: shift per-host batch shares away from stragglers (the pipeline
 accepts weighted shard sizes), a softer first response than eviction —
-eviction (elastic re-mesh) is the escalation path (the JAX package's
-runtime/elastic.py, not ported yet: ROADMAP.md, item 11).
+eviction (elastic re-mesh) is the escalation path (``runtime/elastic.py``).
 """
 from __future__ import annotations
 

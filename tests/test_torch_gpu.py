@@ -9,7 +9,10 @@ its twin bit for bit in every output, on K1's traces and on synthetic
 grids (:func:`sched_grid`, on which ``test_torch_sm.py`` holds the twin to
 JAX's scheduler).  K3-K5's wrappers refuse autograd on CUDA tensors, and
 two training steps of the smoke model on the card are held against the
-CPU's (which ``test_torch_train.py`` holds against JAX).
+CPU's (which ``test_torch_train.py`` holds against JAX).  Distribution:
+two ranks sharing the card over gloo prefill the smoke model through K3
+on their heads and run the int8 all-reduce (equal to the CPU's), and a
+world of one over NCCL trains on a (1, 1) mesh as one rank does.
 
 Every test here needs an NVIDIA GPU: it carries the ``gpu`` marker and skips
 without one.  Run them on the card with
@@ -1315,3 +1318,109 @@ def test_train_step_card_vs_cpu(cuda):
     np.testing.assert_allclose(lg, lc, rtol=1e-5)
     for a, b in zip(pg, pc):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5)
+
+
+# distribution: ranks that share the card ------------------------------------
+
+def _sharded_prefill_rank(rank, world, toks):
+    """Rank ``rank`` of a (1, world) mesh on the card: the smoke llama's
+    bf16 prefill through K3 on its heads; (K3 launches, whole logits)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import prefill_config
+    from repro_torch.runtime import full_tensor
+    from repro_torch.sharding import local_batch, param_pspecs
+    dev = torch.device("cuda")
+    mesh = make_host_mesh(world, dev)
+    cfg = prefill_config("llama3.2-1b", smoke=True, attn_impl="flash",
+                         mesh=mesh, batch=toks.shape[0])
+    struct = model_struct(cfg)
+    model = Transformer(cfg, init_params(
+        struct, torch.Generator(device=dev).manual_seed(0),
+        dtype=torch.bfloat16, device=dev, mesh=mesh,
+        specs=param_pspecs(struct, cfg, mesh)))
+    ops.flash_attention.launches = 0
+    logits, _ = prefill(model, cfg, local_batch(
+        {"tokens": torch.from_numpy(toks).to(dev)}, cfg, mesh))
+    torch.cuda.synchronize()
+    return ops.flash_attention.launches, full_tensor(logits).float().cpu()
+
+
+def test_sharded_prefill_on_card_launches_k3_per_rank(cuda):
+    """Two ranks sharing the card over gloo, the smoke llama at (1, 2):
+    each launches K3 once a layer on its 4 of 8 heads, and the logits
+    equal the one-rank prefill's within the bf16 hold of the full-size
+    run (5e-2 of the largest logit)."""
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.launch.steps import prefill_config
+    cfg = prefill_config("llama3.2-1b", smoke=True, attn_impl="flash")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 64))
+    res = spawn_world(_sharded_prefill_rank, 2, toks, device="cuda")
+    model = Transformer(cfg, init_params(
+        model_struct(cfg), torch.Generator(device=cuda).manual_seed(0),
+        dtype=torch.bfloat16, device=cuda))
+    want = prefill(model, cfg, {"tokens": torch.from_numpy(toks).to(cuda)}
+                   )[0].float().cpu()
+    for launches, got in res:
+        assert launches == cfg.n_layers
+        got = got[..., :cfg.vocab_size]
+        assert (got - want).abs().max() <= 5e-2 * want.abs().max()
+
+
+def _compress_rank(rank, world, xs):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.runtime import compressed_allreduce
+    mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("data",))
+    x = torch.from_numpy(xs[rank])
+    return (compressed_allreduce(x.cuda(), mesh, "data").cpu(),
+            compressed_allreduce(x, mesh, "data"))
+
+
+def test_compressed_allreduce_on_card_equals_cpu(cuda):
+    """Over two ranks sharing the card: int8 on the wire through gloo,
+    the card's result bit-equal to the CPU's on the same inputs."""
+    from repro_torch.launch.mesh import spawn_world
+    xs = np.random.default_rng(1).standard_normal((2, 5003)).astype(
+        np.float32)
+    for card, cpu in spawn_world(_compress_rank, 2, xs, device="cuda"):
+        assert torch.equal(card, cpu)
+        want = torch.from_numpy(xs.sum(0))
+        assert (card - want).abs().max() / want.abs().max() < 0.05
+
+
+def _nccl_step_rank(rank, world):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import mesh_config
+    from repro_torch.launch.train import build_train_state, make_step
+    from repro_torch.data import synthetic_batch
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sharding import local_batch
+    dev = torch.device("cuda")
+    cfg = get_config("llama3.2-1b", smoke=True)
+    rows = {}
+    for key, mesh in (("one", None), ("mesh", make_host_mesh(1, dev))):
+        c = cfg if mesh is None else mesh_config(cfg, mesh, 2)
+        model, opt = build_train_state(c, 0, dev, mesh)
+        step = make_step(c, AdamWConfig(lr=3e-3), total_steps=3)
+        out = []
+        for i in range(3):
+            b = {k: torch.from_numpy(v).to(dev)
+                 for k, v in synthetic_batch(cfg, 2, 32, step=i).items()}
+            if mesh is not None:
+                b = local_batch(b, c, mesh)
+            model, opt, _, m = step(model, opt, None, b)
+            out.append((m["loss"].item(), m["grad_norm"].item()))
+        rows[key] = out
+    return dist.get_backend(), rows
+
+
+def test_train_step_on_a_one_rank_nccl_mesh(cuda):
+    """A world of one over NCCL: the sharded step on a (1, 1) mesh against
+    the one-rank step, within 1e-5 relative (the vocab-parallel CE sums in
+    another order)."""
+    from repro_torch.launch.mesh import spawn_world
+    [(backend, rows)] = spawn_world(_nccl_step_rank, 1, device="cuda")
+    assert backend == "nccl"
+    np.testing.assert_allclose(rows["mesh"], rows["one"], rtol=1e-5)

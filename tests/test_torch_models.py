@@ -84,7 +84,9 @@ def test_port_imports_neither_jax_nor_repro():
                  "configs.hubert_xlarge", "configs.internvl2_2b",
                  "optim.adamw", "optim.schedule", "checkpoint.ckpt",
                  "runtime.compression", "runtime.straggler", "launch.train",
-                 "examples.train_lm"):
+                 "examples.train_lm", "sharding.specs", "sharding.comm",
+                 "sharding.layout", "launch.mesh", "models.shardmap_tp",
+                 "runtime.elastic"):
         assert f"repro_torch.{name}" in res.stdout.split(), name
 
 
@@ -103,11 +105,16 @@ def test_config_and_param_count_equal_jax(smoke):
 
 
 def test_unported_parts_say_where_they_stand(capsys):
-    # every config is ported; the chunked attention is not
-    _, _, tcfg, model = _smoke()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 12"):
-        tmodels.forward(model, tcfg.replace(attn_impl="chunked"),
-                        {"tokens": torch.from_numpy(_tokens(tcfg, 1, 8))})
+    # every config is ported; the chunked attention, which once raised
+    # naming item 12, is too: the forward through it equals the dense one
+    cfg, jparams, tcfg, model = _smoke()
+    batch = {"tokens": torch.from_numpy(_tokens(tcfg, 2, 32))}
+    got = tmodels.forward(model, tcfg.replace(attn_impl="chunked"), batch)[0]
+    want = tmodels.forward(model, tcfg, batch)[0]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL)
+    jl = jmodels.forward(jparams, cfg.replace(attn_impl="chunked"),
+                         {"tokens": jnp.asarray(batch["tokens"].numpy())})[0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(jl), atol=TOL)
     # MoE layers, which once raised naming item 8, are ported: their check
     # is tests/test_torch_moe.py::test_moe_layers_build_as_jax
     # the serve mode that once raised naming item 5 runs now

@@ -1,0 +1,214 @@
+"""The ranks of ``tests/test_torch_distributed.py``: module-level
+functions that ``repro_torch.launch.mesh.spawn_world`` runs in spawned
+processes (and ``test_torch_optim.py``'s two-rank all-reduce).  They
+live apart from the test module so that a rank imports torch and the port
+only: JAX imported in every rank made the worlds several times slower."""
+import numpy as np
+import torch
+
+from repro_torch import configs as tconfigs
+from repro_torch.launch import train as ttrain
+from repro_torch.models.base import tree_leaves
+from repro_torch.optim import AdamWConfig, adamw_init
+
+B, STEPS = 4, 8
+# a peak lr at which eight warmup steps (lr up to 0.0175) move the loss
+LR = 0.5
+
+
+def sharded(tcfg, mesh, np_tree):
+    """The model on ``mesh`` from whole numpy leaves."""
+    from repro_torch import models as tmodels
+    from repro_torch.models.base import tree_unflatten
+    from repro_torch.sharding import distribute, param_pspecs
+    specs = param_pspecs(tmodels.model_struct(tcfg), tcfg, mesh)
+    leaves = [distribute(torch.from_numpy(np.array(a)), mesh, s)
+              for a, s in zip(tree_leaves(np_tree), tree_leaves(specs),
+                              strict=True)]
+    return tmodels.Transformer(tcfg, tree_unflatten(specs, leaves))
+
+
+def full(tree):
+    from repro_torch.runtime import full_tensor
+    return [full_tensor(t).numpy() for t in tree_leaves(tree)]
+
+
+def world4(rank, world, trees, batches, ck):
+    torch.set_num_threads(1)
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import mesh_config, prefill, prefill_config
+    from repro_torch.models.layers import mlp
+    from repro_torch.models.base import Params
+    from repro_torch.models.shardmap_tp import mlp_tp, o_proj_tp
+    from repro_torch.models.transformer import local_params
+    from repro_torch.runtime import compressed_allreduce, full_tensor
+    from repro_torch.sharding import comm, distribute, local_batch
+    from repro_torch.sharding.layout import Layout
+    from repro_torch.models.base import PartitionSpec as PS
+    mesh = make_host_mesh(2, "cpu")
+    out = {}
+
+    # eight training steps
+    cfg = mesh_config(tconfigs.get_config("llama3.2-1b", smoke=True), mesh,
+                      B)
+    model = sharded(cfg, mesh, trees["llama3.2-1b"])
+    opt = adamw_init(model.tree)
+    step = ttrain.make_step(cfg, AdamWConfig(lr=LR), total_steps=STEPS)
+    rows = []
+    for i, b in enumerate(batches["llama3.2-1b"]):
+        hb = local_batch({k: torch.from_numpy(v) for k, v in b.items()},
+                         cfg, mesh)
+        model, opt, _, m = step(model, opt, None, hb)
+        rows.append([m[k].item() for k in ("loss", "grad_norm", "lr")])
+        if i == 0:
+            out["grads"] = full(model.grads)
+    out["rows"] = rows
+    out["params"] = full(model.tree)
+    wq = model.tree["segments"][0]["0"]["attn"]["wq"]
+    shards = comm.all_gather(wq.to_local()[None], 0, comm.dist.group.WORLD)
+    out["wq_placements"] = str(wq.placements)
+    out["wq_distinct_shards"] = len({s.numpy().tobytes() for s in shards})
+
+    # the prefill of llama3.2-1b and deepseek-moe-16b (its 8 experts split
+    # over 'model'), f32 scores
+    for arch in ("llama3.2-1b", "deepseek-moe-16b"):
+        pcfg = prefill_config(arch, smoke=True, mesh=mesh,
+                              batch=B).replace(attn_dtype="f32")
+        pm = sharded(pcfg, mesh, trees[arch])
+        toks = torch.from_numpy(batches[arch][0]["tokens"])
+        logits, caches = prefill(pm, pcfg, local_batch({"tokens": toks},
+                                                       pcfg, mesh))
+        out[f"{arch} logits"] = full_tensor(logits).numpy()
+        out[f"{arch} k"] = full_tensor(caches[-1]["0"]["k"]).numpy()
+        out[f"{arch} k placements"] = str(caches[-1]["0"]["k"].placements)
+
+    # gemma3's chunked attention under forced qseq falls back to dense
+    gcfg = prefill_config("gemma3-4b", smoke=True, mesh=mesh, batch=B
+                          ).replace(attn_dtype="f32", score_shard="qseq")
+    gm = sharded(gcfg, mesh, trees["gemma3-4b"])
+    gt = local_batch({"tokens": torch.from_numpy(
+        batches["gemma3-4b"][0]["tokens"])}, gcfg, mesh)
+    dense = full_tensor(prefill(gm, gcfg, gt)[0]).numpy()
+    chunked = full_tensor(prefill(gm, gcfg.replace(attn_impl="chunked"),
+                                  gt)[0]).numpy()
+    out["qseq dense"], out["qseq chunked"] = dense, chunked
+
+    # mlp_tp and o_proj_tp against mlp and the einsum, as the reference's
+    # test_shard_map_tp_mlp_matches_gspmd draws them
+    g = torch.Generator().manual_seed(0)
+    d, ff = cfg.d_model, cfg.d_ff
+    whole = {"w_down": torch.randn(ff, d, generator=g) * 0.05,
+             "w_gate": torch.randn(d, ff, generator=g) * 0.05,
+             "w_up": torch.randn(d, ff, generator=g) * 0.05}
+    specs = {"w_gate": PS("data", "model"), "w_up": PS("data", "model"),
+             "w_down": PS("model", "data")}
+    p = local_params({k: distribute(v, mesh, specs[k])
+                      for k, v in whole.items()})
+    x = torch.randn(8, 32, d, generator=g)
+    lay = Layout(mesh, batch=True, seq=True)
+    rows_x = comm.chunk(comm.chunk(x, 0, lay.data), 1, lay.model)
+    want = mlp(Params(whole), x)
+    got = comm.all_gather(comm.all_gather(mlp_tp(p, rows_x, cfg, lay), 1,
+                                          lay.model), 0, lay.data)
+    out["mlp_tp_err"] = (got - want).abs().max().item()
+    oh = torch.randn(8, 32, 8, 4, generator=g)
+    wo = torch.randn(8, 4, d, generator=g) * 0.05
+    want = torch.einsum("bshk,hkd->bsd", oh, wo)
+    mine = comm.chunk(comm.chunk(oh, 0, lay.data), 2, lay.model)
+    got = o_proj_tp(mine, comm.chunk(wo, 0, lay.model), cfg, lay)
+    got = comm.all_gather(comm.all_gather(got, 1, lay.model), 0, lay.data)
+    out["o_proj_tp_err"] = (got - want).abs().max().item()
+
+    # compressed_allreduce of one tensor on every rank, over 'data' of a
+    # 4-rank mesh
+    from torch.distributed.device_mesh import init_device_mesh
+    flat = init_device_mesh("cpu", (world,), mesh_dim_names=("data",))
+    xc = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        4099).astype(np.float32))
+    out["compressed"] = compressed_allreduce(xc, flat, "data").numpy()
+
+    # the (2, 2) checkpoint of the initial llama parameters
+    save_checkpoint(ck, 1, sharded(cfg, mesh, trees["llama3.2-1b"]).tree,
+                    process_index=rank, process_count=world)
+    comm.dist.barrier()
+    return out if rank == 0 else None
+
+
+def world2(rank, world, ck, tree, ck_train):
+    torch.set_num_threads(1)
+    from repro_torch import models as tmodels
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.runtime import survivors_mesh
+    from repro_torch.sharding import param_pspecs, placements
+    from repro_torch.models.base import tree_map
+    cfg = tconfigs.get_config("llama3.2-1b", smoke=True)
+    mesh = survivors_mesh(list(range(world)), ("data", "model"), 2,
+                          device="cpu")
+    struct = tmodels.model_struct(cfg)
+    specs = param_pspecs(struct, cfg, mesh)
+    like = tree_map(lambda p: torch.empty(p.shape, device="meta"), struct)
+    got = restore_checkpoint(ck, 1, like, shardings=specs, mesh=mesh)
+    placed = [list(t.placements) == placements(mesh, s)
+              for t, s in zip(tree_leaves(got), tree_leaves(specs))]
+    res = ttrain.train("llama3.2-1b", smoke=True, steps=6, batch=4, seq=32,
+                       compress=True, lr=1e-2, log_every=1000,
+                       ckpt_dir=ck_train, ckpt_every=3, model_axis=2,
+                       device="cpu")
+    out = {"mesh": list(mesh.mesh.shape), "placed": placed,
+           "leaves": full(got), "losses": res["losses"],
+           "train_params": full(res["params"])}
+    return out if rank == 0 else None
+
+
+def world8(rank, world, tree, toks):
+    torch.set_num_threads(1)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import prefill, prefill_config
+    from repro_torch.runtime import full_tensor
+    from repro_torch.sharding import local_batch
+    mesh = make_host_mesh(8, "cpu")
+    cfg = prefill_config("gemma3-4b", smoke=True, mesh=mesh, batch=2
+                         ).replace(attn_dtype="f32")
+    model = sharded(cfg, mesh, tree)
+    mine = local_batch({"tokens": torch.from_numpy(toks)}, cfg, mesh)
+    dense, caches = prefill(model, cfg, mine)
+    chunked = prefill(model, cfg.replace(attn_impl="chunked"), mine)[0]
+    out = {"score_shard": cfg.score_shard, "kv_shard": cfg.kv_shard,
+           "dense": full_tensor(dense).numpy(),
+           "chunked": full_tensor(chunked).numpy(),
+           "wq": str(model.tree["segments"][0]["0"]["attn"]["wq"].placements),
+           "k": str(caches[0]["0"]["k"].placements)}
+    # what the mesh refuses: K3 on a rank's own query rows, and the
+    # RG-LRU and RWKV-6 layers (every rank raises at the same point)
+    out["refused"] = {"flash qseq": _refusal(
+        lambda: prefill(model, cfg.replace(attn_impl="flash"), mine))}
+    for arch in ("recurrentgemma-2b", "rwkv6-3b"):
+        from repro_torch import models as tmodels
+        from repro_torch.sharding import param_pspecs
+        rcfg = prefill_config(arch, smoke=True, mesh=mesh, batch=2)
+        struct = tmodels.model_struct(rcfg)
+        rm = tmodels.Transformer(rcfg, tmodels.init_params(
+            struct, torch.Generator().manual_seed(0), device="cpu",
+            mesh=mesh, specs=param_pspecs(struct, rcfg, mesh)))
+        out["refused"][arch] = _refusal(lambda: prefill(rm, rcfg, mine))
+    return out if rank == 0 else None
+
+
+def _refusal(fn) -> str | None:
+    """The message of the AssertionError ``fn`` raises, None if it runs."""
+    try:
+        fn()
+    except AssertionError as e:
+        return str(e)
+    return None
+
+
+def compress_two(rank, world, xs):
+    """``compressed_allreduce`` of rank r's row of ``xs`` over 'data'."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.runtime import compressed_allreduce
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("data",))
+    return compressed_allreduce(torch.from_numpy(xs[rank]), mesh,
+                                "data").numpy()
