@@ -113,7 +113,19 @@ main paths at full width, with random weights or data drawn from a seed:
   18 and resumed from its step-16 checkpoint under ``build/``, held to
   the uninterrupted run; and ``python -m repro_torch.examples.train_lm``
   and ``python -m repro_torch.benchmarks.bench_analysis --smoke`` (its
-  three gates on the card's host) as subprocesses.
+  three gates on the card's host) as subprocesses;
+- the cells and the dry run: [train]'s step once more under
+  ``FlopCounterMode``, held to the dry run's count of the same step on the
+  meta device (FLOPs equal, peak within 10% of the card's); llama3.2-1b
+  whole through ``train_cell``'s step (bf16 compute from f32 masters, 3
+  steps of 4 x 2048, with 1 and 2 microbatches held to each other, wall,
+  tokens/s and peak beside the dry run's estimate), cut to 2 layers on the
+  card against the CPU; ``python -m repro_torch.launch.dryrun`` over the
+  single-pod mesh's 40 cells (25 ok, 7 skipped, 8 refused naming ROADMAP
+  item 15) and two cells of the (2, 16, 16) mesh, as subprocesses, their
+  roofline table printed; and ``examples/dryrun_cell.py``'s control-flow
+  cell (BFSD, ``hanoi_torch`` against ``turing_oracle``) on the card, one
+  launch of K1, equal to the CPU's row.
 
 Every kernel's launch count is set to 0 just before each path and read just
 after it; a path that launches a kernel another number of times than it
@@ -239,6 +251,40 @@ CUT_LAYERS, CUT_S, CARD_CPU_RTOL = 2, 512, 1e-4
 TRAIN_STEPS, TRAIN_B, TRAIN_S = 6, 4, 2048
 CARD_CPU_TRAIN_S, TRAIN_CARD_CPU_RTOL, TRAIN_CARD_CPU_ATOL = 256, 1e-5, 1e-5
 COMPRESS_STEPS = 8
+# the dry run's estimator (launch/steps.py::lower_fn: FlopCounterMode's
+# formulas, MemTracker's live bytes, on the meta device) on [train]'s own
+# step: its FLOPs equal to the card's FlopCounterMode count, its peak
+# within DRYRUN_PEAK_RTOL of the card's measured peak
+DRYRUN_PEAK_RTOL = 0.10
+# the dry-run sweep: the single-pod mesh's 40 cells spread over
+# DRYRUN_JOBS processes of the card's host and, at the same time, two
+# multi-pod cells over two more (the host has 8 cores)
+DRYRUN_JOBS = 6
+DRYRUN_MULTI = ("llama3.2-1b,mixtral-8x7b", "train_4k")
+# [cell_train]: train_cell's step (bf16 compute from f32 masters, AdamW at
+# its constant default lr) on llama3.2-1b whole, CELL_STEPS steps of
+# TRAIN_B x TRAIN_S, with 1 and with 2 microbatches from the same
+# weights; then cut to CUT_LAYERS layers at 1 x CELL_CARD_CPU_S on the
+# card against the CPU (the CPU's bf16 steps take ~16 s a 100 tokens
+# there, so 256 of them, as [train_card_vs_cpu]).  The two runs of each
+# pair round their bf16 products in other orders (two microbatches sum
+# two half-batch bf16 gradients in f32; the CPU's bf16 products
+# accumulate otherwise).  Held, each limit about 2 to 3 times the larger
+# of the two pairs' readings on an NVIDIA H100 80GB HBM3 at 700 W:
+# * the losses and grad norms within CELL_RTOL relative (read: 1.588e-03
+#   for mb 2 vs 1, 4.011e-04 card vs CPU);
+# * each parameter leaf's difference within CELL_LEAF_NORM_RTOL of the
+#   leaf's norm (read: 2.370e-03, 1.551e-03);
+# * each leaf's mean absolute difference within CELL_LEAF_MEAN_LR * lr
+#   (read: 2.444e-02, 2.459e-02).  AdamW moves an element by about lr a
+#   step whatever the size of its gradient, so a gradient that is dropped
+#   or taken from the wrong rows moves the elements it touches by up to
+#   lr a step: one layer's slice of a stacked leaf's gradient dropped
+#   moves that leaf by up to CELL_STEPS * lr / 16 (0.19 lr) in mean;
+# * every parameter within AdamW's sign-flip bound (_flip_bound), which
+#   only a layout or update fault passes.
+CELL_STEPS, CELL_CARD_CPU_S = 3, 256
+CELL_RTOL, CELL_LEAF_NORM_RTOL, CELL_LEAF_MEAN_LR = 5e-3, 5e-3, 0.06
 # distribution: llama3.2-1b whole, DIST_TRAIN_STEPS steps of DIST_TRAIN_B x
 # DIST_TRAIN_S at (data 2, model 2) on 4 ranks sharing the card, against
 # the one-rank step (TP and FSDP sum the products and the gradients in
@@ -933,6 +979,8 @@ def train_phases(*, run_path, dev) -> None:
     phase("train_split", arch="llama3.2-1b", step_s=f"{median:.4f}",
           forward_loss_s=f"{fwd:.4f}", adamw_s=f"{upd:.4f}",
           backward_and_rest_s=f"{median - fwd - upd:.4f}")
+    dryrun_hold(cfg, model, opt, step_fn, pipe.get(TRAIN_STEPS + 1), dev,
+                median_s=median, peak_gb=peak_gb)
     tok_grad = model.grads["embed"]["tok"]
     del model, opt, step_fn
     torch.cuda.empty_cache()
@@ -1073,6 +1121,318 @@ def train_phases(*, run_path, dev) -> None:
     check(len(gates) == 3, "bench_analysis: a gate line is missing")
 
 
+def dryrun_hold(cfg, model, opt, step_fn, host_batch, dev, *,
+                median_s: float, peak_gb: float) -> None:
+    """[dryrun_hold]: the dry run's estimator on [train]'s own step.  One
+    more step of it on the card under ``FlopCounterMode``; the same step
+    on the meta device through ``launch/steps.py::lower_fn`` (the dry
+    run's counter and ``MemTracker``), from a model and optimizer state
+    of [train]'s shapes.  Held: the FLOPs equal, the estimated peak within
+    DRYRUN_PEAK_RTOL of [train]'s measured one.  Reported: the roofline
+    bound of the counts (``launch/hlo_analysis.py``: compute at the bf16
+    tensor-core peak, which the dry run's cells use; the step runs in f32,
+    so also with compute at the f32 CUDA-core peak) as a share of the
+    measured step, and the MFU."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.hlo_analysis import Roofline
+    from repro_torch.launch.steps import lower_fn
+    from repro_torch.models import Transformer, init_params, model_struct
+    from repro_torch.models.base import tree_leaves
+    from repro_torch.optim import adamw_init
+
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host_batch.items()}
+    with FlopCounterMode(display=False) as fc:
+        step_fn(model, opt, None, batch)
+    torch.cuda.synchronize()
+    card_flops = fc.get_total_flops()
+
+    meta = Transformer(cfg, init_params(model_struct(cfg), None,
+                                        device="meta"))
+    grads = meta.trainable()
+    mopt = adamw_init(meta.tree)
+    mbatch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+              for k, v in batch.items()}
+    est = lower_fn(lambda: step_fn(meta, mopt, None, mbatch), (),
+                   track=tree_leaves(meta.tree) + tree_leaves(grads)
+                   + tree_leaves(mopt) + list(mbatch.values()))
+    roof = Roofline(est.cost.flops, est.cost.hbm_bytes, 0.0)
+
+    def mfu(dtype):
+        return card_flops / median_s / PEAK_FLOPS[dtype]
+
+    f32_bound = max(est.cost.flops / PEAK_FLOPS[torch.float32], roof.memory_s)
+    est_gb = est.memory["peak_bytes"] / 1e9
+    peak_rel = est_gb / peak_gb - 1
+    phase("dryrun_hold", step="[train] llama3.2-1b 4x2048 f32 remat full",
+          flops_card=card_flops, flops_estimate=int(est.cost.flops),
+          peak_gb_card=f"{peak_gb:.2f}", peak_gb_estimate=f"{est_gb:.2f}",
+          peak_rel_err=f"{peak_rel:+.4f}", rtol=DRYRUN_PEAK_RTOL,
+          hbm_bytes_estimate=f"{est.cost.hbm_bytes:.4e}",
+          roofline_bound_s=f"{roof.step_time_s:.4f}",
+          dominant=roof.dominant, step_s=f"{median_s:.4f}",
+          bound_share=f"{roof.step_time_s / median_s:.4f}",
+          bound_f32_s=f"{f32_bound:.4f}",
+          bound_f32_share=f"{f32_bound / median_s:.4f}",
+          mfu_bf16_peak=f"{mfu(torch.bfloat16):.4f}",
+          mfu_f32_peak=f"{mfu(torch.float32):.4f}",
+          estimate_s=f"{est.seconds:.2f}")
+    check(card_flops == est.cost.flops,
+          f"dry-run FLOPs {est.cost.flops} != the card's {card_flops}")
+    check(abs(peak_rel) <= DRYRUN_PEAK_RTOL,
+          f"dry-run peak {est_gb:.2f} GB vs the card's {peak_gb:.2f} GB")
+    del batch
+
+
+def _cell_run(cell, params, opt, batches, timed: bool):
+    """``cell.fn`` over ``batches``; (loss, grad norm, wall) a step."""
+    rows = []
+    for b in batches:
+        t0 = time.perf_counter()
+        _, _, m = cell.fn(params, opt, b)
+        if timed:
+            torch.cuda.synchronize()
+        rows.append((m["loss"].item(), m["grad_norm"].item(),
+                     time.perf_counter() - t0))
+    return rows
+
+
+def _pair_stats(rows, ref_rows, params, ref_params, lr: float) -> dict:
+    """Two runs of ``train_cell``'s step apart: the losses' and grad
+    norms' largest relative difference; each parameter leaf's difference
+    in norm (relative to the leaf's) and in mean (in units of ``lr``), the
+    worst leaf of each by its index; the largest element's."""
+    metric_rel = float(np.max(np.abs(
+        np.array([r[:2] for r in rows]) - np.array([r[:2] for r in ref_rows]))
+        / np.abs(np.array([r[:2] for r in ref_rows]))))
+    worst, norm_rel, mean_lr = 0.0, (0.0, -1), (0.0, -1)
+    for i, (a, b) in enumerate(zip(params, ref_params, strict=True)):
+        d = (a.double() - b.double()).abs()
+        worst = max(worst, d.max().item())
+        norm_rel = max(norm_rel, ((torch.linalg.vector_norm(d)
+                                   / torch.linalg.vector_norm(b.double())
+                                   ).item(), i))
+        mean_lr = max(mean_lr, (d.mean().item() / lr, i))
+    return {"metric_rel": metric_rel, "worst": worst, "norm_rel": norm_rel,
+            "mean_lr": mean_lr}
+
+
+def _pair_hold(name: str, rows, ref_rows, params, ref_params, lr: float,
+               **fields) -> None:
+    """Hold two runs of ``train_cell``'s step: losses and grad norms within
+    CELL_RTOL relative; each parameter leaf within CELL_LEAF_NORM_RTOL of
+    its norm and CELL_LEAF_MEAN_LR * lr in mean; every parameter within
+    AdamW's sign-flip bound."""
+    s = _pair_stats(rows, ref_rows, params, ref_params, lr)
+    flip = _flip_bound([lr] * len(rows))
+    phase("cell_train", compare=name,
+          losses=",".join(f"{r[0]:.6f}" for r in rows),
+          losses_ref=",".join(f"{r[0]:.6f}" for r in ref_rows),
+          loss_gnorm_max_rel_err=f"{s['metric_rel']:.3e}", rtol=CELL_RTOL,
+          worst_leaf_norm_rel_err=f"{s['norm_rel'][0]:.3e}",
+          worst_leaf_norm=s["norm_rel"][1], leaf_norm_rtol=CELL_LEAF_NORM_RTOL,
+          worst_leaf_mean_abs_err_in_lr=f"{s['mean_lr'][0]:.3e}",
+          worst_leaf_mean=s["mean_lr"][1], leaf_mean_lr=CELL_LEAF_MEAN_LR,
+          params_max_abs_err=f"{s['worst']:.3e}", flip_bound=f"{flip:.3e}",
+          **fields)
+    check(s["metric_rel"] <= CELL_RTOL
+          and s["norm_rel"][0] <= CELL_LEAF_NORM_RTOL
+          and s["mean_lr"][0] <= CELL_LEAF_MEAN_LR and s["worst"] <= flip,
+          f"cell_train {name}: losses and grad norms {s['metric_rel']}, "
+          f"leaf {s['norm_rel']} in norm, {s['mean_lr']} lr in mean, "
+          f"parameters {s['worst']} (bound {flip})")
+
+
+def cell_train_phase(*, run_path, dev) -> dict:
+    """[cell_train]: llama3.2-1b whole through ``train_cell``'s step, the
+    path the dry run's training cells count, on one card (``mesh=None``):
+    bf16 compute from f32 masters, CELL_STEPS steps of TRAIN_B x TRAIN_S
+    with 1 and 2 microbatches from the same weights, held to each other;
+    the dry run's estimate of the same step (FLOPs, bound, peak) beside
+    the card's; the step cut to CUT_LAYERS layers, card against CPU."""
+    from repro_torch.configs import Shape, get_config
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.launch.dryrun import HBM_BUDGET
+    from repro_torch.launch.hlo_analysis import analyze_cell
+    from repro_torch.launch.steps import lower_cell, train_cell
+    from repro_torch.models import init_params, model_struct
+    from repro_torch.models.base import tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    numbers: dict = {}
+    shape = Shape("cell_train", TRAIN_S, TRAIN_B, "train")
+    full = get_config("llama3.2-1b")
+    pipe = SyntheticPipeline(full, TRAIN_B, TRAIN_S)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                pipe.get(i).items()} for i in range(CELL_STEPS)]
+    lr = AdamWConfig().lr
+    bf16_peak = PEAK_FLOPS[torch.bfloat16]
+    runs = {}
+    for mb in (1, 2):
+        cell = train_cell("llama3.2-1b", shape, None, microbatches=mb)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(model_struct(cell.cfg), torch.Generator(
+            device=dev).manual_seed(SEED), device=dev)
+        opt = adamw_init(params)
+        rows, _, got = run_path(
+            f"llama3.2-1b cell_train mb{mb}",
+            lambda: _cell_run(cell, params, opt, batches, True), {})
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        walls = [r[2] for r in rows]
+        median = float(np.median(walls[1:]))
+        est = lower_cell(cell, None)
+        roof = analyze_cell(est)
+        tokens = TRAIN_B * TRAIN_S
+        for i, r in enumerate(rows):
+            phase("cell_train", arch="llama3.2-1b", microbatches=mb,
+                  step=i + 1, loss=f"{r[0]:.4f}", grad_norm=f"{r[1]:.4f}",
+                  wall_s=f"{r[2]:.4f}")
+        phase("cell_train", arch="llama3.2-1b", microbatches=mb,
+              compute="bf16 from f32 masters", remat=cell.cfg.remat,
+              attn_dtype=cell.cfg.attn_dtype, tokens=f"{TRAIN_B}x{TRAIN_S}",
+              first_step_s=f"{walls[0]:.4f}", median_step_s=f"{median:.4f}",
+              tok_per_s=f"{tokens / median:.1f}", peak_gb=f"{peak:.2f}",
+              estimate_peak_gb=f"{est.memory['peak_bytes'] / 1e9:.2f}",
+              estimate_flops=f"{roof.flops:.4e}",
+              tflop_per_s=f"{roof.flops / median / 1e12:.2f}",
+              mfu_bf16_peak=f"{roof.flops / median / bf16_peak:.4f}",
+              roofline_bound_s=f"{roof.step_time_s:.4f}",
+              dominant=roof.dominant,
+              bound_share=f"{roof.step_time_s / median:.4f}",
+              fits_budget=est.memory["peak_bytes"] <= HBM_BUDGET,
+              launches=got)
+        check(all(np.isfinite(r[:2]).all() for r in rows),
+              f"cell_train mb{mb}: {rows}")
+        runs[mb] = (rows, [t.cpu() for t in tree_leaves(params)])
+        numbers[f"mb{mb}"] = {"median_step_s": median, "peak_gb": peak,
+                              "estimate_peak_gb":
+                                  est.memory["peak_bytes"] / 1e9}
+        del params, opt, cell
+    del batches
+    torch.cuda.empty_cache()
+    _pair_hold("microbatches 2 vs 1", runs[2][0], runs[1][0], runs[2][1],
+               runs[1][1], lr)
+    del runs
+
+    # the step cut to CUT_LAYERS layers, 1 x CELL_CARD_CPU_S, card vs CPU
+    cut = full.replace(n_layers=CUT_LAYERS,
+                       layer_plan=((("global",), CUT_LAYERS),))
+    cut_shape = Shape("cell_cut", CELL_CARD_CPU_S, 1, "train")
+    cpipe = SyntheticPipeline(cut, 1, CELL_CARD_CPU_S)
+    host = init_params(model_struct(cut), torch.Generator().manual_seed(SEED),
+                       device="cpu")
+    pair = {}
+    for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        cell = train_cell(cut, cut_shape, None)
+        params = tree_map(lambda t: t.to(where, copy=True), host)
+        opt = adamw_init(params)
+        bs = [{k: torch.from_numpy(v).to(where) for k, v in
+               cpipe.get(i).items()} for i in range(CELL_STEPS)]
+        t0 = time.perf_counter()
+        rows = _cell_run(cell, params, opt, bs, where.type == "cuda")
+        pair[key] = (rows, [t.cpu() for t in tree_leaves(params)],
+                     time.perf_counter() - t0)
+    _pair_hold("card vs cpu", pair["card"][0], pair["cpu"][0],
+               pair["card"][1], pair["cpu"][1], lr,
+               layers=f"{CUT_LAYERS} of 16", tokens=f"1x{CELL_CARD_CPU_S}",
+               card_s=f"{pair['card'][2]:.3f}", cpu_s=f"{pair['cpu'][2]:.3f}")
+    del pair, host
+    return numbers
+
+
+def cell_phases(*, run_path, dev) -> dict:
+    """The cells and the dry run on the card's machine: [cell_train]
+    (:func:`cell_train_phase`); [dryrun]: ``python -m
+    repro_torch.launch.dryrun`` over the single-pod mesh's 40 cells and
+    two multi-pod cells, as subprocesses; [dryrun_cell]: the example's
+    control-flow cell on the card (one K1 launch), held to the CPU's
+    row."""
+    from repro_torch.configs import skipped_cells
+    from repro_torch.examples.dryrun_cell import run_cf_cell
+
+    numbers = cell_train_phase(run_path=run_path, dev=dev)
+
+    # [dryrun]: the sweep, its records under build/ (never results/)
+    out = ROOT / "build" / "repro_torch"
+    single, multi = out / "dryrun.json", out / "dryrun_multi.json"
+    for p in (single, multi):
+        p.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    multi_proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DRYRUN_MULTI[0], "--shape", DRYRUN_MULTI[1], "--multipod-only",
+         "--jobs", "2", "--out", str(multi)], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        subprocess_phase("dryrun", ["repro_torch.launch.dryrun", "--all",
+                                    "--single-only", "--jobs",
+                                    str(DRYRUN_JOBS), "--out", str(single)],
+                         900)
+        single_s = time.perf_counter() - t0
+        multi_out, _ = multi_proc.communicate(timeout=600)
+    finally:
+        if multi_proc.poll() is None:
+            multi_proc.kill()
+            multi_proc.wait()
+    multi_s = time.perf_counter() - t0
+    phase("dryrun", command=" ".join(multi_proc.args[2:]),
+          exit=multi_proc.returncode, wall_s=f"{multi_s:.2f}")
+    for line in multi_out.strip().splitlines()[-4:]:
+        print(f"  {line}")
+    check(multi_proc.returncode == 0,
+          f"the multi-pod dry run exited {multi_proc.returncode}")
+    recs = json.loads(single.read_text()) + json.loads(multi.read_text())
+    counts = collections.Counter((r["mesh"], r["status"]) for r in recs)
+    from repro_torch.benchmarks.roofline import fmt_table
+    for line in fmt_table(recs, "single").splitlines():
+        print(f"  {line}")
+    for r in recs:
+        if r["mesh"] == "multi":
+            ro = r["roofline"]
+            phase("dryrun", mesh="multi (2, 16, 16)", arch=r["arch"],
+                  shape=r["shape"], status=r["status"],
+                  flops=f"{ro['flops']:.4e}",
+                  peak_gb=f"{r['memory']['peak_bytes'] / 1e9:.2f}",
+                  coll_count=json.dumps(ro["coll_count_by_kind"]))
+    by_status = {f"{m}_{st}": n for (m, st), n in sorted(counts.items())}
+    phase("dryrun", single_s=f"{single_s:.1f}",
+          multi_s_concurrent=f"{multi_s:.1f}", jobs=DRYRUN_JOBS,
+          **by_status)
+    skips = {(r["arch"], r["shape"]) for r in recs
+             if r["mesh"] == "single" and r["status"] == "skipped"}
+    refused = [r for r in recs if r["status"] == "refused"]
+    check(sum(1 for r in recs if r["mesh"] == "single") == 40
+          and counts[("single", "ok")] == 25
+          and skips == {(a, s) for a, s, _ in skipped_cells()}
+          and len(refused) == 8
+          and all("ROADMAP item 15" in r["reason"]
+                  and r["arch"] in ("recurrentgemma-2b", "rwkv6-3b")
+                  for r in refused)
+          and not any(r["status"] == "error" for r in recs)
+          and counts[("multi", "ok")] == 2,
+          f"dry run: {dict(counts)}")
+    check(not (ROOT / "results" / "dryrun.json").exists()
+          and not (ROOT / "results" / "perf.json").exists(),
+          "the dry run wrote under results/")
+    numbers["dryrun"] = {"counts": by_status, "single_s": single_s,
+                         "multi_s": multi_s}
+
+    # [dryrun_cell]: the example's control-flow cell through K1
+    pair_names = ["hanoi_torch", "turing_oracle"]
+    row, wall, got = run_path("dryrun_cell", lambda: run_cf_cell(
+        "BFSD", pair_names, dev), {"hanoi_run": 1})
+    cpu_row = run_cf_cell("BFSD", pair_names, "cpu")
+    same = dataclasses.asdict(row) == dataclasses.asdict(cpu_row)
+    phase("dryrun_cell", bench="BFSD", pair="hanoi_torch/turing_oracle",
+          discrepancy_pct=f"{row.discrepancy_pct:.4f}",
+          ipc_delta_pct=f"{row.ipc_delta_pct:.4f}", wall_s=f"{wall:.3f}",
+          equal_to_cpu=same, launches=got)
+    check(same, f"dryrun_cell: the card's row {row} != the CPU's {cpu_row}")
+    return numbers
+
+
 # ---------------------------------------------------------------------------
 # distribution: ranks spawned here, each a module-level function of this
 # file (spawn_world pickles it by name), all on the one card
@@ -1129,24 +1489,30 @@ def _dist_train_run(cfg, dev, mesh=None):
 
 
 def _adamw_flip_bound(steps: int, peak_lr: float) -> float:
-    """The most AdamW (``optim.adamw``'s defaults) can move one parameter
-    apart in two runs over ``steps`` steps of ``make_step``'s schedule,
-    whatever their gradients: the update m_hat / sqrt(v_hat) at Adam step
-    n is at most u_max(n) = sqrt(sum_s a_s^2 / b_s) in size (Cauchy-
-    Schwarz over the moments' weights a_s, b_s), so two runs' updates
-    differ by at most 2 * lr * u_max(n) a step; weight decay adds lr *
-    0.1 times the difference already made, which the factor (1 + 0.1)
-    covers."""
-    from repro_torch.optim import AdamWConfig
+    """:func:`_flip_bound` over ``steps`` steps of ``make_step``'s
+    schedule."""
     from repro_torch.optim.schedule import cosine_schedule
+    return _flip_bound([cosine_schedule(t, peak_lr=peak_lr,
+                                        total=steps).item()
+                        for t in range(steps)])
+
+
+def _flip_bound(lrs) -> float:
+    """The most AdamW (``optim.adamw``'s defaults) can move one parameter
+    apart in two runs over steps at the learning rates ``lrs``, whatever
+    their gradients: the update m_hat / sqrt(v_hat) at Adam step n is at
+    most u_max(n) = sqrt(sum_s a_s^2 / b_s) in size (Cauchy-Schwarz over
+    the moments' weights a_s, b_s), so two runs' updates differ by at most
+    2 * lr * u_max(n) a step; weight decay adds lr * 0.1 times the
+    difference already made, which the factor (1 + 0.1) covers."""
+    from repro_torch.optim import AdamWConfig
     c = AdamWConfig()
     total = 0.0
-    for t in range(steps):
+    for t, lr in enumerate(lrs):
         n = t + 1
         u2 = sum(((1 - c.b1) * c.b1 ** (n - s) / (1 - c.b1 ** n)) ** 2
                  / ((1 - c.b2) * c.b2 ** (n - s) / (1 - c.b2 ** n))
                  for s in range(1, n + 1))
-        lr = cosine_schedule(t, peak_lr=peak_lr, total=steps).item()
         total += 2 * lr * u2 ** 0.5 * (1 + c.weight_decay)
     return total
 
@@ -3016,6 +3382,9 @@ def main() -> int:
 
     # 5k. training on the card ------------------------------------------------
     train_phases(run_path=run_path, dev=dev)
+
+    # 5l'. the cells and the dry run ---------------------------------------
+    cell_phases(run_path=run_path, dev=dev)
 
     # 5l. distribution: ranks sharing the card ---------------------------------
     dist_numbers = dist_phases(launches=launches)

@@ -106,31 +106,49 @@ def shard_act(x, lay=None):
     return seq_combine(x, lay)
 
 
-def _sdpa(q, k, v, mask, *, scale: float, cfg: ModelConfig):
+def _sdpa(q, k, v, mask, *, scale: float, cfg: ModelConfig, hd_group=None,
+          seq_group=None):
     """Reference attention.  q:[B,Sq,H,hd] k,v:[B,Sk,K,hd] mask:[Sq,Sk].
 
     GQA repeats the kv heads.  ``attn_dtype`` picks the score dtype; the
     bf16 path keeps the JAX package's max / f32 exp / f32 row-sum /
-    reciprocal order."""
+    reciprocal order.
+
+    Decode on a mesh splits the cache: ``hd_group`` — q, k and v are this
+    rank's head_dim slices and the scores partial sums over that group;
+    ``seq_group`` — k and v are this rank's cache positions (``mask`` its
+    columns), so the softmax's max and row sum and the weighted sum are
+    combined over that group."""
     H, K = q.shape[2], k.shape[2]
     if K != H:
         k = k.repeat_interleave(H // K, dim=2)
         v = v.repeat_interleave(H // K, dim=2)
     acc = torch.float32 if cfg.attn_dtype == "f32" else torch.bfloat16
-    logits = torch.einsum("bqhe,bshe->bhqs", q.to(acc), k.to(acc)) \
-        * torch.tensor(scale, dtype=acc, device=q.device)
+    logits = torch.einsum("bqhe,bshe->bhqs", q.to(acc), k.to(acc))
+    if hd_group is not None:
+        logits = comm.all_reduce(logits, hd_group)
+    logits = logits * torch.tensor(scale, dtype=acc, device=q.device)
     neg = torch.tensor(-3e38 if acc == torch.float32 else -3e4, dtype=acc,
                        device=q.device)
     logits = torch.where(mask[None, None, :, :], logits, neg)
-    if acc == torch.float32:
+    if acc == torch.float32 and seq_group is None:
         probs = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bhqs,bshe->bqhe", probs, v.to(acc))
-        return out.to(q.dtype)
+        return torch.einsum("bhqs,bshe->bqhe", probs, v.to(acc)).to(q.dtype)
     m = logits.amax(dim=-1, keepdim=True)
-    e = torch.exp((logits - m).float()).to(acc)
-    rsum = 1.0 / torch.clamp_min(e.float().sum(dim=-1, keepdim=True), 1e-30)
-    probs = e * rsum.to(acc)
+    if seq_group is not None:
+        m = comm.all_reduce(m, seq_group, op=dist.ReduceOp.MAX)
+    if acc == torch.float32:
+        e = torch.exp(logits - m)
+        probs = e / comm.all_reduce(e.sum(dim=-1, keepdim=True), seq_group)
+    else:
+        e = torch.exp((logits - m).float()).to(acc)
+        rsum = e.float().sum(dim=-1, keepdim=True)
+        if seq_group is not None:
+            rsum = comm.all_reduce(rsum, seq_group)
+        probs = e * (1.0 / torch.clamp_min(rsum, 1e-30)).to(acc)
     out = torch.einsum("bhqs,bshe->bqhe", probs, v.to(acc))
+    if seq_group is not None:
+        out = comm.all_reduce(out, seq_group)
     return out.to(q.dtype)
 
 
@@ -242,54 +260,82 @@ def _attention_tp(params, x, *, cfg: ModelConfig, kind: str, positions,
 
     heads mode (q heads split over 'model', the rules' choice when they
     divide, and ``cfg.score_shard`` not "qseq"): the sequence is
-    gathered, each rank projects its own q and kv heads (kv heads it
-    shares with other ranks when they do not divide), attends (K3, chunked or dense) and multiplies by its rows of
-    wo; the partial sums meet in ``shard_act``.  qseq mode (heads do not
-    divide; the weights are split on head_dim or not at all): each rank
-    gathers the whole attention weights, projects k/v of every position
-    and q of its own rows only, and attends densely over them (the
-    chunked schedule falls back to dense here, as in the JAX package;
-    K3 takes only whole rows, so ``"flash"`` is refused here while the
-    sequence is split); its output rows need no combine.
+    gathered, each rank projects its own q heads and the k/v that
+    :func:`_kv_heads` says, attends (K3, chunked or dense) and multiplies
+    by its rows of wo; the partial sums meet in ``shard_act``.  qseq mode
+    (heads do not divide; the weights are split on head_dim or not at
+    all): each rank gathers the whole attention weights, projects q, k
+    and v of its own rows only, all-gathers k and v over 'model', and
+    attends densely with its rows' queries (the chunked schedule falls
+    back to dense here, as in the JAX package; K3 takes only whole rows,
+    so ``"flash"`` is refused here while the sequence is split); its
+    output rows need no combine.
 
     The JAX package's ``_score_constraint`` (the O(S^2) scores pinned to
     the head axis, or to the query rows for qseq) has no counterpart:
     a rank computes only its own heads' or its own rows' scores, which is
     the layout the pin asks for, and no collective touches them."""
-    tp, r = lay.tp, lay.tp_rank
     window = cfg.window_size if kind in (LOCAL, SWA) else 0
-    h = seq_gather(x, lay)
     if tp_sharded(params.wq, 1) and cfg.score_shard != "qseq":
-        wq = _w(params, "wq", lay)
-        q = torch.einsum("bsd,dhk->bshk", h, wq.to(h.dtype))
-        k = torch.einsum("bsd,dhk->bshk", h, _w(params, "wk", lay).to(h.dtype))
-        v = torch.einsum("bsd,dhk->bshk", h, _w(params, "wv", lay).to(h.dtype))
+        h = seq_gather(x, lay)
+        q = torch.einsum("bsd,dhk->bshk", h,
+                         _w(params, "wq", lay).to(h.dtype))
         q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-        cache = _kv_pin(k, v, cfg, lay)
-        if not tp_sharded(params.wk, 1):
-            lo, hi = _gqa_block(cfg.n_heads, cfg.n_kv_heads, tp, r)
-            k, v = k[:, :, lo:hi], v[:, :, lo:hi]
-        else:
-            _gqa_block(cfg.n_heads, cfg.n_kv_heads, tp, r)
+        k, v, cache = _kv_heads(params, h, cfg, lay, positions)
         out = _attend(q, k, v, cfg=cfg, window=window, positions=positions)
         out = torch.einsum("bshk,hkd->bsd", out,
                            _w(params, "wo", lay).to(h.dtype))
         return shard_act(out, lay), cache
     wq, wk, wv, wo = (_w(params, n, lay, model=True)
                       for n in ("wq", "wk", "wv", "wo"))
-    k = rope(torch.einsum("bsd,dhk->bshk", h, wk.to(h.dtype)), positions,
-             cfg.rope_theta)
-    v = torch.einsum("bsd,dhk->bshk", h, wv.to(h.dtype))
     pos1 = positions if positions.dim() == 1 else positions[0]
     qpos = seq_rows(pos1, lay, dim=0)
-    q = rope(torch.einsum("bsd,dhk->bshk", x, wq.to(x.dtype)),
-             qpos if positions.dim() == 1 else seq_rows(positions, lay),
+    own = qpos if positions.dim() == 1 else seq_rows(positions, lay)
+    k = rope(torch.einsum("bsd,dhk->bshk", x, wk.to(x.dtype)), own,
+             cfg.rope_theta)
+    v = torch.einsum("bsd,dhk->bshk", x, wv.to(x.dtype))
+    k, v = seq_gather(k, lay), seq_gather(v, lay)
+    q = rope(torch.einsum("bsd,dhk->bshk", x, wq.to(x.dtype)), own,
              cfg.rope_theta)
     out = _attend(q, k, v, cfg=cfg, window=window, positions=positions,
                   q_positions=qpos if lay.seq else None, chunked_ok=False)
     out = torch.einsum("bshk,hkd->bsd", out, wo.to(x.dtype))
     return out, _kv_pin(k, v, cfg, lay)
+
+
+def _kv_heads(params, h, cfg: ModelConfig, lay, positions):
+    """heads mode's k/v: (k, v of the kv heads [lo, hi) that this rank's
+    q heads read (:func:`_gqa_block`), this rank's cache shard).  A rank
+    projects only what it reads or keeps:
+
+    * kv heads split over 'model' (they divide): its own kv heads, which
+      are its block and its cache shard;
+    * else, with head_dim dividing by the model axis: its head_dim slice
+      of every kv head (its ``kv_shard="hd"`` cache shard), all-gathered
+      over 'model' before RoPE (which pairs the two halves of a head),
+      then its block sliced out: the JAX package's layout, where the kv
+      pin shards the projection on head_dim;
+    * else every kv head (the cache, unpinned, is every head)."""
+    tp, r = lay.tp, lay.tp_rank
+    wk, wv = _w(params, "wk", lay), _w(params, "wv", lay)
+    lo, hi = _gqa_block(cfg.n_heads, cfg.n_kv_heads, tp, r)
+    if tp_sharded(params.wk, 1) or tp == 1:
+        k = rope(torch.einsum("bsd,dhk->bshk", h, wk.to(h.dtype)), positions,
+                 cfg.rope_theta)
+        v = torch.einsum("bsd,dhk->bshk", h, wv.to(h.dtype))
+        return k, v, _kv_pin(k, v, cfg, lay)
+    hd = wk.shape[2]
+    if hd % tp == 0:
+        a, b = r * hd // tp, (r + 1) * hd // tp
+        k = comm.gather(torch.einsum("bsd,dhk->bshk", h,
+                                     wk[:, :, a:b].to(h.dtype)), 3, lay.model)
+        v = comm.gather(torch.einsum("bsd,dhk->bshk", h,
+                                     wv[:, :, a:b].to(h.dtype)), 3, lay.model)
+    else:
+        k = torch.einsum("bsd,dhk->bshk", h, wk.to(h.dtype))
+        v = torch.einsum("bsd,dhk->bshk", h, wv.to(h.dtype))
+    k = rope(k, positions, cfg.rope_theta)
+    return k[:, :, lo:hi], v[:, :, lo:hi], _kv_pin(k, v, cfg, lay)
 
 
 def _kv_pin(k, v, cfg: ModelConfig, lay):
@@ -312,9 +358,12 @@ def attention(params, x, *, cfg: ModelConfig, kind: str, positions,
     Decode: x is [B, 1, d]; kv_cache = dict(k=[B, Smax, K, hd], v=...) and
     cache_pos the position.  The new k/v are written into kv_cache in place
     (the JAX package returns an updated copy); returns (out, kv_cache).
+    On a mesh x and kv_cache are this rank's (:func:`_decode_tp`).
     """
+    if lay is not None and kv_cache is not None:
+        return _decode_tp(params, x, cfg=cfg, positions=positions,
+                          kv_cache=kv_cache, cache_pos=cache_pos, lay=lay)
     if lay is not None:
-        assert kv_cache is None, "decode runs on one device"
         return _attention_tp(params, x, cfg=cfg, kind=kind,
                              positions=positions, lay=lay)
     S = x.shape[1]
@@ -346,6 +395,90 @@ def attention(params, x, *, cfg: ModelConfig, kind: str, positions,
 
     out = torch.einsum("bshk,hkd->bsd", out, params.wo.to(x.dtype))
     return out, new_cache
+
+
+def _gather_to(t, dim: int, whole: int, lay):
+    """``t`` whole along ``dim`` (``whole`` long): all-gathered over
+    'model' when this rank holds a 1/tp slice of it."""
+    if t.shape[dim] == whole:
+        return t
+    return comm.all_gather(t, dim, lay.model)
+
+
+def _slice_of(t, dim: int, lay):
+    """This rank's 1/tp slice of ``t`` along ``dim`` (over 'model')."""
+    return comm.chunk(t, dim, lay.model)
+
+
+def _decode_tp(params, x, *, cfg: ModelConfig, positions, kv_cache,
+               cache_pos: int, lay):
+    """Single-step decode on a mesh, the cache laid out as the JAX
+    package's ``cache_pspecs`` lays it out.  x: this rank's batch rows
+    [B, 1, d] (every row when the batch is not split); kv_cache: this
+    rank's shard of the layer's cache.  The cache's kv heads are split
+    over 'model' when they divide it (a rank attends with its q heads
+    over its kv heads); otherwise its head_dim is: q is all-gathered
+    (one token), the scores are partial sums over 'model', and the
+    weighted sum is this rank's head_dim slice of every head.  With
+    ``lay.cache_seq`` (batch 1) the cache's positions are split over
+    'data' too, and the softmax is combined over it.  A rank projects
+    the new token's k/v of its own cache slice (k all-gathered on
+    head_dim before RoPE, which pairs the two halves of a head) and
+    writes them where it holds that position.  ``wo``'s partial sums
+    meet in ``shard_act``.  Returns (out [B, 1, d], kv_cache)."""
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    ck, cv = kv_cache["k"], kv_cache["v"]
+    by_heads, by_hd = ck.shape[2] != K, ck.shape[3] != hd
+    wq, wk, wv = (_w(params, n, lay) for n in ("wq", "wk", "wv"))
+    q = torch.einsum("bsd,dhk->bshk", x, wq.to(x.dtype))
+    if by_heads:                 # its q heads read its kv heads
+        assert tp_sharded(params.wq, 1) and tp_sharded(params.wk, 1)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(torch.einsum("bsd,dhk->bshk", x, wk.to(x.dtype)),
+                 positions, cfg.rope_theta)
+        v = torch.einsum("bsd,dhk->bshk", x, wv.to(x.dtype))
+    else:                        # every q head, whole, then its slice
+        q = _gather_to(q, 2, H, lay)
+        q = rope(_gather_to(q, 3, hd, lay), positions, cfg.rope_theta)
+        if by_hd and not tp_sharded(params.wk, 2):
+            wk, wv = _slice_of(wk, 2, lay), _slice_of(wv, 2, lay)
+        k = torch.einsum("bsd,dhk->bshk", x, wk.to(x.dtype))
+        v = torch.einsum("bsd,dhk->bshk", x, wv.to(x.dtype))
+        k = rope(_gather_to(_gather_to(k, 2, K, lay), 3, hd, lay),
+                 positions, cfg.rope_theta)
+        if by_hd:
+            q, k = _slice_of(q, 3, lay), _slice_of(k, 3, lay)
+        else:
+            v = _gather_to(_gather_to(v, 2, K, lay), 3, hd, lay)
+
+    # the ring buffer, its positions split over 'data' with cache_seq
+    n_loc = ck.shape[1]
+    seq = lay.mesh.get_group("data") if lay.cache_seq else None
+    n_all = n_loc * (comm.size(seq) if seq is not None else 1)
+    first = n_loc * (comm.rank(seq) if seq is not None else 0)
+    widx = cache_pos % n_all - first
+    if 0 <= widx < n_loc:
+        ck[:, widx:widx + 1] = k
+        cv[:, widx:widx + 1] = v
+    n_valid = min(cache_pos + 1, n_all)
+    mask = (torch.arange(n_loc, device=x.device) + first < n_valid)[None, :]
+    out = _sdpa(q, ck, cv, mask, scale=hd ** -0.5, cfg=cfg,
+                hd_group=lay.model if by_hd else None, seq_group=seq)
+
+    # out: its heads (by_heads), its head_dim slice of every head (by_hd)
+    # or every head whole; wo takes it in wo's own layout
+    wo = _w(params, "wo", lay)
+    heads_wo, hd_wo = tp_sharded(params.wo, 0), tp_sharded(params.wo, 1)
+    if not (by_heads and heads_wo or by_hd and hd_wo):
+        out = _gather_to(_gather_to(out, 2, H, lay), 3, hd, lay)
+        if heads_wo:
+            out = _slice_of(out, 2, lay)
+        elif hd_wo:
+            out = _slice_of(out, 3, lay)
+    out = torch.einsum("bshk,hkd->bsd", out, wo.to(x.dtype))
+    if heads_wo or hd_wo:        # partial sums over 'model'
+        out = shard_act(out, lay)
+    return out, kv_cache
 
 
 def attention_cache_struct(cfg: ModelConfig, batch: int, max_len: int):

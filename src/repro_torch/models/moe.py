@@ -67,7 +67,8 @@ def _dispatch_group(xt, gates, eidx, C: int, E: int, k: int):
     flat_e = eidx.reshape(-1)                            # [T*k]
     order = torch.argsort(flat_e, stable=True)           # local sort
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=E)
+    counts = torch.zeros(E, dtype=flat_e.dtype, device=xt.device) \
+        .scatter_add_(0, flat_e, torch.ones_like(flat_e))   # bincount
     offsets = torch.cumsum(counts, 0) - counts
     rank = torch.arange(T * k, device=xt.device) - offsets[sorted_e]
     kept = rank < C                                      # drop overflow

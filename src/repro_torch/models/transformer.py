@@ -21,6 +21,7 @@ how the collectives and gradients go).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -137,12 +138,15 @@ class Transformer(nn.Module):
     A tree of DTensors makes a sharded model on their ``DeviceMesh``
     (``self.mesh``; ``None`` for a model on one device): the modules hold
     views of this rank's local shards, each marked with the tensor
-    dimension that each mesh dimension splits."""
+    dimension that each mesh dimension splits.  ``defer_data_grads``
+    (ZeRO-1) leaves a data-replicated weight's gradient as this rank's
+    part (:class:`~repro_torch.sharding.layout.Layout`)."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
         self.tree = params
         self.grads = None
+        self.defer_data_grads = False
         first = tree_leaves(params)[0]
         self.mesh = getattr(first, "device_mesh", None)
         self.embed = local_params(params["embed"])
@@ -217,24 +221,27 @@ def _mark(module, tree, stacked: bool):
 
 def layout(params: Transformer, cfg: ModelConfig, seq_len: int):
     """The :class:`Layout` of a forward of ``seq_len`` positions on the
-    model's mesh (``None`` on one device): the batch split over 'data'
-    when ``cfg.batch_axes`` says so, the residual stream's sequence split
-    over 'model' when ``cfg.act_shard == "seq"`` and it divides.
+    model's mesh (``None`` on one device): the batch split over the data
+    axes ('data', or 'pod' x 'data') when ``cfg.batch_axes`` says so,
+    the residual stream's sequence split over 'model' when
+    ``cfg.act_shard == "seq"`` and it divides.
 
     The RG-LRU and RWKV-6 layers have no TP rule in the port yet, so a
     model with them is refused on a mesh (ROADMAP item 15)."""
     if params.mesh is None:
         return None
     mesh = params.mesh
-    assert tuple(mesh.mesh_dim_names) == ("data", "model"), \
+    assert tuple(mesh.mesh_dim_names) in (("data", "model"),
+                                          ("pod", "data", "model")), \
         mesh.mesh_dim_names
     assert not {RECURRENT, RWKV} & set(cfg.kinds), (
         f"{cfg.name}: RG-LRU and RWKV-6 layers do not run on a mesh yet "
         "(ROADMAP item 15)")
-    tp = mesh.size(1)
+    tp = mesh["model"].size()
     return Layout(mesh, batch=bool(cfg.batch_axes),
                   seq=(cfg.act_shard == "seq" and seq_len > 1
-                       and seq_len % tp == 0))
+                       and seq_len % tp == 0),
+                  defer_data_grads=params.defer_data_grads)
 
 
 # ---------------------------------------------------------------------------
@@ -388,15 +395,15 @@ def _forward(params: Transformer, cfg: ModelConfig, batch: dict, lay,
 
 def _as_dtensor(local, lay: Layout, cfg: ModelConfig, shard_dims: dict):
     """Wrap a rank's output shard as a DTensor: the batch dim (``shard_dims
-    ["batch"]``) on 'data' when the batch is split, and the first of
+    ["batch"]``) on the data axes when the batch is split, and the first of
     ``shard_dims["model"]`` whose local size is short of ``full`` on
     'model'."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
-    pl = [Shard(shard_dims["batch"]) if lay.batch else Replicate(),
-          Replicate()]
+    pl = [Shard(shard_dims["batch"]) if lay.batch else Replicate()
+          for _ in lay.data_dims] + [Replicate()]
     for dim, full in shard_dims["model"]:
         if local.shape[dim] * lay.tp == full and lay.tp > 1:
-            pl[1] = Shard(dim)
+            pl[-1] = Shard(dim)
             break
     return DTensor.from_local(local, lay.mesh, pl, run_check=False)
 
@@ -478,26 +485,50 @@ def decode_step(params: Transformer, cfg: ModelConfig, caches, tokens,
     The MoE layers' aux loss is dropped, as the JAX package's decode step
     drops it.
 
-    Returns (logits [B, 1, V], caches).  Decode runs on one device.
+    Returns (logits [B, 1, V], caches).
+
+    On a mesh ``tokens`` are this rank's batch rows (every row when the
+    batch is not split) and ``caches`` DTensors laid out by
+    ``cache_pspecs``: the batch over the data axes, or (batch 1) the
+    positions over 'data'; kv heads or head_dim over 'model'
+    (:func:`~repro_torch.models.layers._decode_tp`).  A MoE layer routes
+    this rank's rows as one group, so its capacity is that of the rank's
+    rows.  The logits come back as a DTensor, [B, 1, padded vocab], as
+    :func:`forward`'s.
     """
-    assert params.mesh is None, "decode runs on one device"
-    x = embed(params.embed, tokens, cfg)
+    lay = layout(params, cfg, 1)
+    if lay is not None:
+        k = next((c["k"] for seg in caches for c in seg.values()
+                  if "k" in c), None)
+        pl = None if k is None else \
+            k.placements[k.device_mesh.mesh_dim_names.index("data")]
+        lay = dataclasses.replace(
+            lay, cache_seq=pl is not None and pl.is_shard() and pl.dim == 2)
+    x = embed(params.embed, tokens, cfg, lay)
     positions = torch.full((1,), cache_pos, dtype=torch.int32,
                            device=x.device)
     for seg, layers, seg_cache in zip(_segments(cfg), params.segments,
                                       caches):
         for r, lp in enumerate(layers):
             for j, kind in enumerate(seg["pattern"]):
-                layer_cache = {name: t[r]
+                layer_cache = {name: _local(t)[r]
                                for name, t in seg_cache[str(j)].items()}
                 x, new_cache, _ = _apply_layer(
                     getattr(lp, str(j)), x, cfg=cfg, kind=kind,
                     is_moe=seg["moe"], positions=positions, cache=layer_cache,
-                    cache_pos=cache_pos)
+                    cache_pos=cache_pos, lay=lay)
                 for name, t in new_cache.items():
                     if t is not layer_cache[name]:
                         layer_cache[name].copy_(t)
 
-    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    logits = lm_logits(params.head, params.embed, x, cfg)
+    x = rmsnorm(params.final_norm, x, cfg.norm_eps, lay)
+    logits = lm_logits(params.head, params.embed, x, cfg, lay)
+    if lay is not None:
+        logits = _as_dtensor(logits, lay, cfg, {
+            "batch": 0, "model": [(2, cfg.padded_vocab)]})
     return logits, caches
+
+
+def _local(t):
+    """A DTensor's local shard (a view of its storage), a tensor itself."""
+    return t.to_local() if hasattr(t, "device_mesh") else t

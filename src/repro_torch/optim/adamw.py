@@ -21,7 +21,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.models.base import tree_leaves, tree_map
+from repro_torch.models.base import P, tree_leaves, tree_map
 from repro_torch.sharding import comm
 
 
@@ -42,6 +42,16 @@ def adamw_init(params):
         "step": torch.zeros((), dtype=torch.int32,
                             device=_local(tree_leaves(params)[0]).device),
     }
+
+
+def adamw_init_struct(struct):
+    """Structure tree of the optimizer state (for specs and the dry run):
+    the moments shaped, laid out and typed as their parameters, and the
+    int32 step."""
+    def zeros(p: P) -> P:
+        return P(p.shape, p.axes, init="zeros", dtype=p.dtype)
+    return {"m": tree_map(zeros, struct), "v": tree_map(zeros, struct),
+            "step": P((), (), init="zeros", dtype="int32")}
 
 
 def _local(t):

@@ -1,6 +1,6 @@
 """Layouts of the sharded model: where a rank's activations sit on a
-``(data, model)`` ``DeviceMesh``, and how a rank fetches the weights it
-computes with.
+``(data, model)`` or ``(pod, data, model)`` ``DeviceMesh``, and how a
+rank fetches the weights it computes with.
 
 The port computes on local tensors with explicit collectives (the
 :mod:`~repro_torch.sharding.comm` layer), where the JAX package leaves
@@ -33,16 +33,33 @@ from repro_torch.sharding import comm
 
 @dataclass(frozen=True)
 class Layout:
-    """This forward's layout on ``mesh`` (axes ``("data", "model")``):
-    ``batch`` — the batch is split over ``data`` (``cfg.batch_axes``);
-    ``seq`` — the residual stream's sequence is split over ``model``."""
+    """This forward's layout on ``mesh`` (axes ``("data", "model")``, or
+    ``("pod", "data", "model")``): ``batch`` — the batch is split over the
+    data axes, pod x data (``cfg.batch_axes``); ``seq`` — the residual
+    stream's sequence is split over ``model``; ``cache_seq`` — a decode
+    cache's positions are split over ``data`` (batch 1: ``cache_pspecs``'s
+    sequence-parallel cache); ``defer_data_grads`` — a weight replicated
+    over a data axis keeps this rank's part of its gradient, for the
+    ZeRO-1 step to sum once (``launch/steps.py::train_cell``)."""
     mesh: object
     batch: bool
     seq: bool
+    cache_seq: bool = False
+    defer_data_grads: bool = False
+
+    @property
+    def data_dims(self) -> tuple[str, ...]:
+        """The mesh dimensions that split the batch: ``pod`` and ``data``."""
+        return tuple(a for a in ("pod", "data")
+                     if a in self.mesh.mesh_dim_names)
 
     @property
     def data(self):
-        return self.mesh.get_group("data")
+        """The batch's group: ``data``, or pod x data flattened."""
+        dims = self.data_dims
+        if len(dims) == 1:
+            return self.mesh.get_group(dims[0])
+        return self.mesh[dims]._flatten("_".join(dims)).get_group()
 
     @property
     def model(self):
@@ -50,7 +67,7 @@ class Layout:
 
     @property
     def tp(self) -> int:
-        return self.mesh.size(1)
+        return self.mesh["model"].size()
 
     @property
     def tp_rank(self) -> int:
@@ -58,7 +75,7 @@ class Layout:
 
     @property
     def dp(self) -> int:
-        return self.mesh.size(0)
+        return self.world // self.tp
 
     @property
     def world(self) -> int:
@@ -79,21 +96,33 @@ def mark(t: torch.Tensor, shard: tuple) -> torch.Tensor:
 
 
 def fetch(p: torch.Tensor, lay: Layout, *, model: bool = False):
-    """The weight this rank computes with: gathered over ``data`` where it
-    is sharded there (FSDP), and over ``model`` too when ``model`` (a
-    block that needs the whole weight); a dimension sharded over
-    ``model`` and not gathered stays this rank's TP shard."""
-    d_dim, m_dim = shard_of(p)
-    x = (comm.gather(p, d_dim, lay.data) if d_dim is not None
-         else comm.bcast(p, lay.data))
+    """The weight this rank computes with: gathered over each data axis
+    where it is sharded there (FSDP; the rules shard only over ``data``)
+    and used as it is over one that replicates it (``pod``; its gradient
+    all-reduced there unless ``lay.defer_data_grads``), and gathered
+    over ``model`` too when ``model`` (a block that needs the whole
+    weight); a dimension sharded over ``model`` and not gathered stays
+    this rank's TP shard."""
+    names = lay.mesh.mesh_dim_names
+    x = p
+    for name, dim in zip(names, shard_of(p)):
+        if name == "model":
+            continue
+        group = lay.mesh.get_group(name)
+        if dim is not None:
+            x = comm.gather(x, dim, group)
+        elif not lay.defer_data_grads:
+            x = comm.bcast(x, group)
+    m_dim = shard_of(p)[names.index("model")]
     if m_dim is None:
         return comm.bcast(x, lay.model)
     return comm.gather(x, m_dim, lay.model) if model else x
 
 
 def tp_sharded(p, dim: int) -> bool:
-    """Whether ``p``'s dimension ``dim`` is split over ``model``."""
-    return shard_of(p)[1] == dim
+    """Whether ``p``'s dimension ``dim`` is split over ``model`` (the last
+    mesh dimension)."""
+    return shard_of(p)[-1] == dim
 
 
 def seq_gather(x: torch.Tensor, lay: Layout) -> torch.Tensor:

@@ -1,0 +1,211 @@
+"""The port's dry run (``repro_torch.launch.dryrun``, ``hlo_static``,
+``hlo_analysis``) and roofline table against the JAX package's.
+
+- ``model_flops`` equal to the reference's for all 10 archs x 4 shapes.
+- Rank 0's FLOPs at (16, 16) for llama3.2-1b ``train_4k`` (remat
+  "full") and ``prefill_32k`` and minitron-4b ``train_4k`` (its heads do
+  not divide the model axis: qseq) within 2% of the reference's
+  per-device ``analyze_compiled`` FLOPs, each side in a subprocess (the
+  port in a world of 256 fake ranks on the meta device, the reference
+  compiled on 256 host devices).  The port's count is the reference's
+  less its one-hot cross-entropy contraction (the port gathers the gold
+  logit): 0.002% or less.
+- A (2, 16, 16) cell runs with the pod axis: the batch over pod x data,
+  so a rank's FLOPs are half those at (16, 16).
+- A collective over a group of one rank (the 'data' axis of a (1, 2)
+  world) counts nothing; over two ranks it counts by the reference's
+  byte rule.
+- ``roofline.fmt_table`` over a small record set.
+- Nothing is written to ``results/``, where the reference's sweep and its
+  tests (``test_dryrun_results.py``, ``test_perf_artifacts.py``) look.
+
+The machine with the card has no JAX: there this module skips as a
+whole."""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+jax = pytest.importorskip("jax")
+
+from repro import configs as jconfigs
+from repro.launch.hlo_analysis import model_flops as jmodel_flops
+from repro_torch import configs as tconfigs
+from repro_torch.benchmarks import perf_iter, roofline
+from repro_torch.launch import dryrun
+from repro_torch.launch.hlo_analysis import model_flops
+
+ROOT = Path(__file__).resolve().parents[1]
+CELLS = [("llama3.2-1b", "train_4k"), ("llama3.2-1b", "prefill_32k"),
+         ("minitron-4b", "train_4k")]
+RESULTS = [ROOT / "results" / "dryrun.json", ROOT / "results" / "perf.json"]
+
+_PORT = """
+    import json, sys
+    from repro_torch.launch.dryrun import run_cell
+    out = {}
+    for arch, shape in CELLS:
+        kw = {"remat": "full"} if shape.startswith("train") else {}
+        r = run_cell(arch, shape, MULTI, verbose=False, **kw)
+        out[f"{arch}:{shape}"] = r
+    print(json.dumps(out))
+"""
+
+_REFERENCE = """
+    import os
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=256"
+    import json
+    import jax
+    import numpy as np
+    from jax.sharding import Mesh
+    from repro.launch.hlo_analysis import analyze_compiled
+    from repro.launch.steps import build_cell, lower_cell
+    mesh = Mesh(np.array(jax.devices()).reshape(16, 16), ("data", "model"))
+    out = {}
+    for arch, shape in CELLS:
+        kw = {"remat": "full"} if shape.startswith("train") else {}
+        cell = build_cell(arch, shape, mesh, **kw)
+        out[f"{arch}:{shape}"] = analyze_compiled(
+            lower_cell(cell, mesh).compile()).flops
+    print(json.dumps(out))
+"""
+
+
+_GROUPS = """
+    import json
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch.hlo_static import CostMode
+    from repro_torch.sharding import comm
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    mesh = init_device_mesh("cpu", (1, 2), mesh_dim_names=("data", "model"))
+    x = torch.ones(256)
+    out = {}
+    for axis in ("data", "model"):
+        with CostMode() as m:
+            comm.all_reduce(x, mesh.get_group(axis))
+            comm.all_gather(x, 0, mesh.get_group(axis))
+        out[axis] = [m.cost.coll_bytes_by_kind, m.cost.coll_count_by_kind]
+    print(json.dumps(out))
+"""
+
+
+def _start(body: str, **subs):
+    prog = textwrap.dedent(body)
+    for k, v in subs.items():
+        prog = prog.replace(k, repr(v))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    return subprocess.Popen([sys.executable, "-c", prog], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=str(ROOT))
+
+
+def _json(proc) -> dict:
+    out, err = proc.communicate(timeout=900)
+    assert proc.returncode == 0, f"STDOUT:\n{out}\nSTDERR:\n{err}"
+    return json.loads(out.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def runs():
+    before = [p.exists() for p in RESULTS]
+    procs = {"ref": _start(_REFERENCE, CELLS=CELLS),
+             "single": _start(_PORT, CELLS=CELLS, MULTI=False),
+             "multi": _start(_PORT, CELLS=CELLS[:1], MULTI=True)}
+    out = {k: _json(p) for k, p in procs.items()}
+    out["results_before"] = before
+    return out
+
+
+@pytest.mark.parametrize("arch", jconfigs.ARCH_NAMES)
+def test_model_flops_match_reference(arch):
+    for name, shape in jconfigs.SHAPES.items():
+        for backward in (False, True):
+            want = jmodel_flops(jconfigs.get_config(arch), shape,
+                                backward=backward)
+            got = model_flops(tconfigs.get_config(arch),
+                              tconfigs.SHAPES[name], backward=backward)
+            assert got == want, (arch, name, backward)
+
+
+@pytest.mark.parametrize("cell", [f"{a}:{s}" for a, s in CELLS])
+def test_rank_flops_match_reference(runs, cell):
+    rec = runs["single"][cell]
+    assert rec["status"] == "ok" and rec["mesh"] == "single"
+    ratio = rec["roofline"]["flops"] / runs["ref"][cell]
+    assert abs(ratio - 1) <= 0.02, ratio
+    arch, shape = cell.split(":")
+    assert rec["model_flops_total"] == model_flops(
+        tconfigs.get_config(arch), tconfigs.SHAPES[shape],
+        backward=shape == "train_4k")
+    assert rec["memory"]["peak_bytes"] >= rec["memory"]["argument_bytes"] > 0
+    ro = rec["roofline"]
+    assert ro["dominant"] in ("compute", "memory", "collective")
+    assert ro["coll_by_kind"]["all-gather"] > 0
+
+
+def test_multipod_cell_runs_with_the_pod_axis(runs):
+    key = "llama3.2-1b:train_4k"
+    multi, single = runs["multi"][key], runs["single"][key]
+    assert multi["status"] == "ok" and multi["mesh"] == "multi"
+    # the batch over pod x data: half the rows a rank, half the FLOPs
+    assert multi["roofline"]["flops"] == pytest.approx(
+        single["roofline"]["flops"] / 2, rel=1e-6)
+    assert multi["model_flops_per_dev"] * 2 == single["model_flops_per_dev"]
+    # the pod axis replicates the weights: their gradients are summed
+    # over it, so a rank all-reduces more than at (16, 16)
+    assert (multi["roofline"]["coll_count_by_kind"]["all-reduce"]
+            > single["roofline"]["coll_count_by_kind"]["all-reduce"])
+
+
+def test_collectives_over_a_group_of_one_count_nothing():
+    """At (1, 2) the 'data' group is one rank: an all-reduce and an
+    all-gather over it move nothing; over 'model' (two ranks) the
+    all-reduce counts its 1 KiB twice and the all-gather its 2 KiB
+    result."""
+    out = _json(_start(_GROUPS))
+    assert out["data"] == [{}, {}]
+    assert out["model"] == [{"all-reduce": 2048, "all-gather": 2048},
+                            {"all-reduce": 1, "all-gather": 1}]
+
+
+def test_fmt_table():
+    ok = {"arch": "a", "shape": "train_4k", "mesh": "single", "status": "ok",
+          "microbatches": 2,
+          "memory": {"peak_bytes": 90e9, "argument_bytes": 1e9},
+          "roofline": {"compute_s": 1e-3, "memory_s": 2e-3,
+                       "collective_s": 5e-4, "dominant": "memory",
+                       "step_time_s": 2e-3},
+          "model_flops_per_dev": 3e12, "useful_flop_frac": 0.5}
+    fits = dict(ok, arch="b", memory={"peak_bytes": 10e9,
+                                      "argument_bytes": 1e9})
+    rows = [ok, fits,
+            {"arch": "c", "shape": "long_500k", "mesh": "single",
+             "status": "skipped", "reason": "pure full-attention arch"},
+            {"arch": "d", "shape": "train_4k", "mesh": "single",
+             "status": "refused", "reason": "not on a mesh (item 15)"},
+            {"arch": "e", "shape": "train_4k", "mesh": "single",
+             "status": "error", "error": "ValueError: x"},
+            dict(ok, mesh="multi")]
+    table = roofline.fmt_table(rows, "single").splitlines()
+    assert len(table) == 2 + 5
+    assert table[2].startswith("| a | train_4k | 2 | 1.0ms | 2.0ms | 0.5ms "
+                               "| memory | 2.0ms | 3.0T | 0.50 | 90.0 "
+                               "| NO (90G) |")
+    assert table[3].endswith("| 10.0 | yes |")
+    assert "skipped" in table[4] and "refused" in table[5]
+    assert "ERROR" in table[6]
+    assert "cells ok: 3" in roofline.summarize(rows)
+
+
+def test_nothing_written_to_results(runs):
+    assert not any(runs["results_before"])
+    assert not any(p.exists() for p in RESULTS)
+    for default in (dryrun.DEFAULT_OUT, perf_iter.DEFAULT_OUT):
+        assert Path(default).parts[:2] == ("build", "repro_torch"), default

@@ -86,7 +86,10 @@ def test_port_imports_neither_jax_nor_repro():
                  "runtime.compression", "runtime.straggler", "launch.train",
                  "examples.train_lm", "sharding.specs", "sharding.comm",
                  "sharding.layout", "launch.mesh", "models.shardmap_tp",
-                 "runtime.elastic"):
+                 "runtime.elastic", "launch.steps", "launch.dryrun",
+                 "launch.hlo_static", "launch.hlo_analysis",
+                 "benchmarks.roofline", "benchmarks.perf_iter",
+                 "examples.dryrun_cell"):
         assert f"repro_torch.{name}" in res.stdout.split(), name
 
 

@@ -212,3 +212,110 @@ def compress_two(rank, world, xs):
     mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("data",))
     return compressed_allreduce(torch.from_numpy(xs[rank]), mesh,
                                 "data").numpy()
+
+
+TRAIN_MODES = {"fsdp": {}, "mb2": {"microbatches": 2},
+               "zero1": {"param_mode": "zero1"}}
+
+
+def train_cell_runs(mesh, leaves, batch, shape):
+    """One step of smoke llama3.2-1b's ``train_cell`` (f32 scores) in each
+    of :data:`TRAIN_MODES` from the f32 ``leaves``: (loss, grad norm, the
+    updated f32 parameters (the master in zero1), gathered)."""
+    from repro_torch.launch.steps import train_cell
+    from repro_torch.models.base import tree_unflatten
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import full_tensor
+    from repro_torch.sharding import distribute
+    out = {}
+    for mode, kw in TRAIN_MODES.items():
+        cell = train_cell(tconfigs.get_config("llama3.2-1b", smoke=True),
+                          shape, mesh, attn_dtype="f32", **kw)
+        pspec, ospec = cell.in_shardings[:2]
+        master = ospec["master"] if mode == "zero1" and mesh else pspec
+
+        def tree(dtype, spec):
+            ts = [torch.from_numpy(np.array(a)).to(dtype) for a in leaves]
+            if mesh is not None:
+                ts = [distribute(t, mesh, s)
+                      for t, s in zip(ts, tree_leaves(spec))]
+            return tree_unflatten(cell.args[0], ts)
+
+        if mode == "zero1":
+            params = tree(torch.bfloat16, pspec)
+            opt = dict(adamw_init(tree(torch.float32, master)),
+                       master=tree(torch.float32, master))
+        else:
+            params = tree(torch.float32, pspec)
+            opt = adamw_init(params)
+        hb = {k: torch.from_numpy(v) for k, v in batch.items()}
+        params, opt, m = cell.fn(params, opt, hb)
+        w = opt["master"] if mode == "zero1" else params
+        out[mode] = (m["loss"].item(), m["grad_norm"].item(),
+                     [full_tensor(t).numpy() for t in tree_leaves(w)])
+    return out
+
+
+def cells_world(rank, world, cases, tokens, seed, train):
+    """The cells on meshes of this world of 4 CPU ranks.
+
+    Decode: for each case (name, arch, mesh shape, batch, cache length),
+    ``decode_cell``'s step on smoke params drawn from ``seed`` (f32), from
+    zeroed caches laid out by ``cache_pspecs``, one step for each column
+    of ``tokens[name]``: the logits of every step, gathered, and the
+    caches' placements.  Training: :func:`train_cell_runs` at (2, 2) and
+    at (1, 4) on ``train`` = (leaves, batch, shape).  At (1, 4) the smoke
+    model's 8 q heads divide the model axis and its 2 kv heads do not,
+    so a rank projects its head_dim slice of both kv heads and
+    all-gathers it (``layers._kv_heads``): that layout's prefill of
+    ``batch``'s tokens from ``leaves`` (f32 scores) too, its logits and
+    last caches gathered, and ``wk``'s placements."""
+    torch.set_num_threads(1)
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import Shape
+    from repro_torch.launch.steps import decode_cell
+    from repro_torch.models import init_params, model_struct
+    from repro_torch.models.base import tree_unflatten
+    from repro_torch.runtime import full_tensor
+    from repro_torch.sharding import distribute
+    out = {}
+    for name, arch, shape, batch, max_len in cases:
+        mesh = init_device_mesh("cpu", shape,
+                                mesh_dim_names=("data", "model"))
+        cell = decode_cell(tconfigs.get_config(arch, smoke=True),
+                           Shape(name, max_len, batch, "decode"), mesh)
+        pspec, cspec = cell.in_shardings[:2]
+        params = init_params(model_struct(cell.cfg),
+                             torch.Generator().manual_seed(seed),
+                             mesh=mesh, specs=pspec, device="cpu")
+        caches = [tree_unflatten(c, [
+            distribute(torch.zeros(t.shape), mesh, s)
+            for t, s in zip(tree_leaves(c), tree_leaves(sp))])
+            for c, sp in zip(cell.args[1], cspec)]
+        steps = []
+        for pos in range(tokens[name].shape[1]):
+            tok = torch.from_numpy(tokens[name][:, pos:pos + 1])
+            logits, caches = cell.fn(params, caches, tok, pos)
+            steps.append(full_tensor(logits).numpy())
+        k = caches[-1]["0"]["k"]
+        out[name] = {"logits": np.stack(steps), "k": str(k.placements),
+                     "k_local": list(k.to_local().shape)}
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    out["train"] = train_cell_runs(mesh, *train)
+    from repro_torch.launch.steps import prefill, prefill_config
+    from repro_torch.sharding import local_batch
+    leaves, batch, shape = train
+    mesh = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+    out["train_1x4"] = train_cell_runs(mesh, *train)
+    pcfg = prefill_config("llama3.2-1b", smoke=True, mesh=mesh,
+                          batch=shape.global_batch).replace(attn_dtype="f32")
+    model = sharded(pcfg, mesh, leaves)
+    logits, caches = prefill(model, pcfg, local_batch(
+        {"tokens": torch.from_numpy(batch["tokens"])}, pcfg, mesh))
+    out["prefill_1x4"] = {
+        "logits": full_tensor(logits).numpy(),
+        "k": full_tensor(caches[-1]["0"]["k"]).numpy(),
+        "v": full_tensor(caches[-1]["0"]["v"]).numpy(),
+        "wk": str(model.tree["segments"][0]["0"]["attn"]["wk"].placements)}
+    return out if rank == 0 else None
