@@ -11,7 +11,8 @@ RG-LRU scan K4, the RWKV-6 scan K5) and reports each kernel's ptxas
 registers and spills; shows that K3's bf16 kernel runs on the
 tensor cores (its HMMA instructions, and no register spills); holds each
 kernel against its plain PyTorch version on the card (K3 at hd 64, 128, 256
-and 320, in bf16 and f32, with GQA groups of 1 to 10, windowed or not; K4
+and 320, in bf16 and f32, with GQA groups of 1 to 10, windowed or not,
+and on a rank's own query rows at offsets on and off its q tile; K4
 and K5, split over time, against twins that
 walk the same segments: K4's h and K5's s_last bit for bit, also at a
 length of many resident waves, and the same bits from two launches; K1
@@ -121,11 +122,22 @@ main paths at full width, with random weights or data drawn from a seed:
   steps of 4 x 2048, with 1 and 2 microbatches held to each other, wall,
   tokens/s and peak beside the dry run's estimate), cut to 2 layers on the
   card against the CPU; ``python -m repro_torch.launch.dryrun`` over the
-  single-pod mesh's 40 cells (25 ok, 7 skipped, 8 refused naming ROADMAP
-  item 15) and two cells of the (2, 16, 16) mesh, as subprocesses, their
-  roofline table printed; and ``examples/dryrun_cell.py``'s control-flow
-  cell (BFSD, ``hanoi_torch`` against ``turing_oracle``) on the card, one
-  launch of K1, equal to the CPU's row.
+  single-pod mesh's 40 cells (33 ok, 7 skipped: no cell refused) and
+  three ``train_4k`` cells of the (2, 16, 16) mesh (llama3.2-1b,
+  mixtral-8x7b, recurrentgemma-2b), as subprocesses on the card's host
+  while the distribution phases run, their roofline table printed; and ``examples/dryrun_cell.py``'s control-flow cell (BFSD,
+  ``hanoi_torch`` against ``turing_oracle``) on the card, one launch of
+  K1, equal to the CPU's row;
+- distribution, ranks spawned by this script on the one card (gloo; NCCL
+  for a world of one): llama3.2-1b at full width, cut to 2 layers,
+  trained at (2, 2) and, whole, prefilled at (1, 2) through K3 on each
+  rank's heads and, with
+  ``score_shard="qseq"``, on each rank's query rows at offsets 0 and
+  1024; recurrentgemma-2b and rwkv6-3b at full width on (1, 4), cut to 3
+  and 2 layers (the prefill, layer 0 with ``use_kernel=True`` through K4
+  / K5 on a rank's share, one ``train_cell`` step), and rwkv6-3b's time
+  mix at (1, 16), a head split over two ranks, through K5; each held to
+  one rank.
 
 Every kernel's launch count is set to 0 just before each path and read just
 after it; a path that launches a kernel another number of times than it
@@ -171,6 +183,19 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 PREFILL_B, PREFILL_S = 4, 2048
+# K3 on a rank's own query rows [a, b) of S (q_offset a): (name, B, S,
+# rows, H, K, hd, window, dtype).  recurrentgemma-2b's local layer as rank
+# 1 of 4 sees it (qseq: 10 heads do not divide 4); hd 64 GQA 4:1 at rows
+# that start and end off the 64-row q tile; the CUDA-core kernel (f32)
+# off its 128-row tile with a window
+OFFSET_CASES = [
+    ("rgemma_tp4_rank1_bf16", 4, 2048, (512, 1024), 10, 1, 256, 2048,
+     torch.bfloat16),
+    ("gqa_off_tile_bf16", 4, 2048, (1000, 2000), 32, 8, 64, 0,
+     torch.bfloat16),
+    ("gqa_off_tile_f32", 2, 2048, (1000, 1600), 8, 2, 64, 300,
+     torch.float32),
+]
 RAGGED_S = 1000          # a sequence length no kernel tile divides
 LONG_S = 16384           # K4/K5: many more segments than one resident wave
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -260,7 +285,7 @@ DRYRUN_PEAK_RTOL = 0.10
 # DRYRUN_JOBS processes of the card's host and, at the same time, two
 # multi-pod cells over two more (the host has 8 cores)
 DRYRUN_JOBS = 6
-DRYRUN_MULTI = ("llama3.2-1b,mixtral-8x7b", "train_4k")
+DRYRUN_MULTI = ("llama3.2-1b,mixtral-8x7b,recurrentgemma-2b", "train_4k")
 # [cell_train]: train_cell's step (bf16 compute from f32 masters, AdamW at
 # its constant default lr) on llama3.2-1b whole, CELL_STEPS steps of
 # TRAIN_B x TRAIN_S, with 1 and with 2 microbatches from the same
@@ -285,8 +310,10 @@ DRYRUN_MULTI = ("llama3.2-1b,mixtral-8x7b", "train_4k")
 #   only a layout or update fault passes.
 CELL_STEPS, CELL_CARD_CPU_S = 3, 256
 CELL_RTOL, CELL_LEAF_NORM_RTOL, CELL_LEAF_MEAN_LR = 5e-3, 5e-3, 0.06
-# distribution: llama3.2-1b whole, DIST_TRAIN_STEPS steps of DIST_TRAIN_B x
-# DIST_TRAIN_S at (data 2, model 2) on 4 ranks sharing the card, against
+# distribution: llama3.2-1b at full width cut to its first DIST_TRAIN_LAYERS
+# layers (so that the whole run keeps its time limit), DIST_TRAIN_STEPS
+# steps of DIST_TRAIN_B x DIST_TRAIN_S at (data 2, model 2) on 4 ranks
+# sharing the card, against
 # the one-rank step (TP and FSDP sum the products and the gradients in
 # other orders).  Held: the losses and grad norms within DIST_TRAIN_RTOL
 # relative; each parameter leaf within DIST_TRAIN_RTOL relative in norm
@@ -300,8 +327,32 @@ CELL_RTOL, CELL_LEAF_NORM_RTOL, CELL_LEAF_MEAN_LR = 5e-3, 5e-3, 0.06
 # compressed_allreduce of a tensor the size of the token table's gradient
 # over the 4 ranks
 DIST_TRAIN_STEPS, DIST_TRAIN_B, DIST_TRAIN_S = 3, 4, 512
+DIST_TRAIN_LAYERS = 2
 DIST_TRAIN_LR, DIST_TRAIN_RTOL = 3e-3, 1e-5
 DIST_COMPRESS_SHAPE = (128256, 2048)
+# [dist_recurrent]: the recurrent archs at full width on (1, 4), cut to
+# recurrentgemma-2b's first pattern (RG-LRU, RG-LRU, local attention) and
+# rwkv6-3b's first 2 layers: the prefill of PREFILL_B x PREFILL_S (held
+# as [dist_prefill] holds its own: recurrentgemma-2b in bf16, rwkv6-3b in
+# f32, as its one-rank prefill is held), layer 0's temporal mix with
+# use_kernel=True in f32 (within LAYER_TOL of one rank, K4 / K5 against
+# K4 / K5) and one train_cell step of DIST_REC_TRAIN_B x DIST_REC_TRAIN_S
+# (held as [cell_train] holds two runs); then rwkv6-3b's time mix at
+# (1, 16), 2.5 heads a rank, 1 x SPLIT_HEAD_S in f32 through K5
+DIST_REC_LAYERS = {"recurrentgemma-2b": 3, "rwkv6-3b": 2}
+DIST_REC_TRAIN_B, DIST_REC_TRAIN_S = 2, 256
+# The train step's hold.  One AdamW step from the draw moves every element
+# by about lr whatever its gradient, so an element whose gradient sign
+# rounding flips moves 2 lr apart: a zero-initialized leaf (conv_b,
+# mu_base, decay_base, bonus) is then far apart in norm (reported, not
+# held), and in bf16 the TP partial sums (the LoRA combine rounds each
+# rank's bf16 partial) take rwkv6-3b's grad norm 5.79e-3 apart and one
+# leaf 0.073 lr in mean (read at 2 x 256 on an NVIDIA H100 80GB HBM3 at
+# 700 W; at 2 x 512, 4.47e-3 and 0.078).  A rank's shard of a leaf's
+# gradient dropped or misplaced at (1, 4) moves a quarter of the leaf by
+# lr or more: 0.25 lr in mean at least.
+DIST_REC_RTOL, DIST_REC_MEAN_LR = 1e-2, 0.15
+SPLIT_HEAD_RANKS, SPLIT_HEAD_S = 16, 2048
 
 
 def phase(name: str, **fields) -> None:
@@ -1006,7 +1057,8 @@ def train_phases(*, run_path, dev) -> None:
     check(bool(np.isfinite(res["losses"]).all()),
           f"compressed training: {res['losses']}")
 
-    # [train_card_vs_cpu]: full width cut to 2 layers, 1 x 256, 3 steps from
+    # [train_card_vs_cpu]: full width cut to 2 layers, 1 x CARD_CPU_TRAIN_S,
+    # 3 steps from
     # the same weights; TF32 off and f32 products at "highest"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -1218,27 +1270,31 @@ def _pair_stats(rows, ref_rows, params, ref_params, lr: float) -> dict:
 
 
 def _pair_hold(name: str, rows, ref_rows, params, ref_params, lr: float,
+               stats=None, phase_name="cell_train", rtol=CELL_RTOL,
+               norm_rtol=CELL_LEAF_NORM_RTOL, mean_lr=CELL_LEAF_MEAN_LR,
                **fields) -> None:
     """Hold two runs of ``train_cell``'s step: losses and grad norms within
-    CELL_RTOL relative; each parameter leaf within CELL_LEAF_NORM_RTOL of
-    its norm and CELL_LEAF_MEAN_LR * lr in mean; every parameter within
-    AdamW's sign-flip bound."""
-    s = _pair_stats(rows, ref_rows, params, ref_params, lr)
+    ``rtol`` relative; each parameter leaf within ``norm_rtol`` of its
+    norm (None: reported only) and ``mean_lr`` * lr in mean; every
+    parameter within AdamW's sign-flip bound.  ``stats``:
+    :func:`_pair_stats` already taken (where the parameters are elsewhere:
+    a rank)."""
+    s = stats or _pair_stats(rows, ref_rows, params, ref_params, lr)
     flip = _flip_bound([lr] * len(rows))
-    phase("cell_train", compare=name,
+    phase(phase_name, compare=name,
           losses=",".join(f"{r[0]:.6f}" for r in rows),
           losses_ref=",".join(f"{r[0]:.6f}" for r in ref_rows),
-          loss_gnorm_max_rel_err=f"{s['metric_rel']:.3e}", rtol=CELL_RTOL,
+          loss_gnorm_max_rel_err=f"{s['metric_rel']:.3e}", rtol=rtol,
           worst_leaf_norm_rel_err=f"{s['norm_rel'][0]:.3e}",
-          worst_leaf_norm=s["norm_rel"][1], leaf_norm_rtol=CELL_LEAF_NORM_RTOL,
+          worst_leaf_norm=s["norm_rel"][1], leaf_norm_rtol=norm_rtol,
           worst_leaf_mean_abs_err_in_lr=f"{s['mean_lr'][0]:.3e}",
-          worst_leaf_mean=s["mean_lr"][1], leaf_mean_lr=CELL_LEAF_MEAN_LR,
+          worst_leaf_mean=s["mean_lr"][1], leaf_mean_lr=mean_lr,
           params_max_abs_err=f"{s['worst']:.3e}", flip_bound=f"{flip:.3e}",
           **fields)
-    check(s["metric_rel"] <= CELL_RTOL
-          and s["norm_rel"][0] <= CELL_LEAF_NORM_RTOL
-          and s["mean_lr"][0] <= CELL_LEAF_MEAN_LR and s["worst"] <= flip,
-          f"cell_train {name}: losses and grad norms {s['metric_rel']}, "
+    check(s["metric_rel"] <= rtol
+          and (norm_rtol is None or s["norm_rel"][0] <= norm_rtol)
+          and s["mean_lr"][0] <= mean_lr and s["worst"] <= flip,
+          f"{phase_name} {name}: losses and grad norms {s['metric_rel']}, "
           f"leaf {s['norm_rel']} in norm, {s['mean_lr']} lr in mean, "
           f"parameters {s['worst']} (bound {flip})")
 
@@ -1342,84 +1398,12 @@ def cell_train_phase(*, run_path, dev) -> dict:
 
 
 def cell_phases(*, run_path, dev) -> dict:
-    """The cells and the dry run on the card's machine: [cell_train]
-    (:func:`cell_train_phase`); [dryrun]: ``python -m
-    repro_torch.launch.dryrun`` over the single-pod mesh's 40 cells and
-    two multi-pod cells, as subprocesses; [dryrun_cell]: the example's
-    control-flow cell on the card (one K1 launch), held to the CPU's
-    row."""
-    from repro_torch.configs import skipped_cells
+    """The cells on the card: [cell_train] (:func:`cell_train_phase`);
+    [dryrun_cell]: the example's control-flow cell on the card (one K1
+    launch), held to the CPU's row."""
     from repro_torch.examples.dryrun_cell import run_cf_cell
 
     numbers = cell_train_phase(run_path=run_path, dev=dev)
-
-    # [dryrun]: the sweep, its records under build/ (never results/)
-    out = ROOT / "build" / "repro_torch"
-    single, multi = out / "dryrun.json", out / "dryrun_multi.json"
-    for p in (single, multi):
-        p.unlink(missing_ok=True)
-    t0 = time.perf_counter()
-    multi_proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         DRYRUN_MULTI[0], "--shape", DRYRUN_MULTI[1], "--multipod-only",
-         "--jobs", "2", "--out", str(multi)], cwd=ROOT,
-        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    try:
-        subprocess_phase("dryrun", ["repro_torch.launch.dryrun", "--all",
-                                    "--single-only", "--jobs",
-                                    str(DRYRUN_JOBS), "--out", str(single)],
-                         900)
-        single_s = time.perf_counter() - t0
-        multi_out, _ = multi_proc.communicate(timeout=600)
-    finally:
-        if multi_proc.poll() is None:
-            multi_proc.kill()
-            multi_proc.wait()
-    multi_s = time.perf_counter() - t0
-    phase("dryrun", command=" ".join(multi_proc.args[2:]),
-          exit=multi_proc.returncode, wall_s=f"{multi_s:.2f}")
-    for line in multi_out.strip().splitlines()[-4:]:
-        print(f"  {line}")
-    check(multi_proc.returncode == 0,
-          f"the multi-pod dry run exited {multi_proc.returncode}")
-    recs = json.loads(single.read_text()) + json.loads(multi.read_text())
-    counts = collections.Counter((r["mesh"], r["status"]) for r in recs)
-    from repro_torch.benchmarks.roofline import fmt_table
-    for line in fmt_table(recs, "single").splitlines():
-        print(f"  {line}")
-    for r in recs:
-        if r["mesh"] == "multi":
-            ro = r["roofline"]
-            phase("dryrun", mesh="multi (2, 16, 16)", arch=r["arch"],
-                  shape=r["shape"], status=r["status"],
-                  flops=f"{ro['flops']:.4e}",
-                  peak_gb=f"{r['memory']['peak_bytes'] / 1e9:.2f}",
-                  coll_count=json.dumps(ro["coll_count_by_kind"]))
-    by_status = {f"{m}_{st}": n for (m, st), n in sorted(counts.items())}
-    phase("dryrun", single_s=f"{single_s:.1f}",
-          multi_s_concurrent=f"{multi_s:.1f}", jobs=DRYRUN_JOBS,
-          **by_status)
-    skips = {(r["arch"], r["shape"]) for r in recs
-             if r["mesh"] == "single" and r["status"] == "skipped"}
-    refused = [r for r in recs if r["status"] == "refused"]
-    check(sum(1 for r in recs if r["mesh"] == "single") == 40
-          and counts[("single", "ok")] == 25
-          and skips == {(a, s) for a, s, _ in skipped_cells()}
-          and len(refused) == 8
-          and all("ROADMAP item 15" in r["reason"]
-                  and r["arch"] in ("recurrentgemma-2b", "rwkv6-3b")
-                  for r in refused)
-          and not any(r["status"] == "error" for r in recs)
-          and counts[("multi", "ok")] == 2,
-          f"dry run: {dict(counts)}")
-    check(not (ROOT / "results" / "dryrun.json").exists()
-          and not (ROOT / "results" / "perf.json").exists(),
-          "the dry run wrote under results/")
-    numbers["dryrun"] = {"counts": by_status, "single_s": single_s,
-                         "multi_s": multi_s}
-
-    # [dryrun_cell]: the example's control-flow cell through K1
     pair_names = ["hanoi_torch", "turing_oracle"]
     row, wall, got = run_path("dryrun_cell", lambda: run_cf_cell(
         "BFSD", pair_names, dev), {"hanoi_run": 1})
@@ -1433,10 +1417,97 @@ def cell_phases(*, run_path, dev) -> dict:
     return numbers
 
 
+def dryrun_start() -> dict:
+    """[dryrun], started: ``python -m repro_torch.launch.dryrun`` over the
+    single-pod mesh's 40 cells and, at once, DRYRUN_MULTI's cells of the
+    (2, 16, 16) mesh, as subprocesses on the card's host (no card), their
+    records under build/ (never results/).  They run while the
+    distribution phases do (:func:`dryrun_finish` waits for them)."""
+    out = ROOT / "build" / "repro_torch"
+    single, multi = out / "dryrun.json", out / "dryrun_multi.json"
+    for p in (single, multi):
+        p.unlink(missing_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    args = {"single": ["--all", "--single-only", "--jobs", str(DRYRUN_JOBS),
+                       "--out", str(single)],
+            "multi": ["--arch", DRYRUN_MULTI[0], "--shape", DRYRUN_MULTI[1],
+                      "--multipod-only", "--jobs", "2", "--out", str(multi)]}
+    procs = {k: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *a], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for k, a in args.items()}
+    return {"procs": procs, "t0": time.perf_counter(), "single": single,
+            "multi": multi}
+
+
+def dryrun_finish(run) -> dict:
+    """[dryrun], finished: wait for :func:`dryrun_start`'s sweeps, print
+    their tails and roofline table, and hold the records: 40 single-pod
+    records, 33 ok and the registry's 7 skipped, no other status, and
+    DRYRUN_MULTI's cells ok at (2, 16, 16)."""
+    from repro_torch.configs import skipped_cells
+
+    outs, walls = {}, {}
+    try:
+        for k, proc in run["procs"].items():
+            outs[k], _ = proc.communicate(timeout=900)
+            walls[k] = time.perf_counter() - run["t0"]
+    finally:
+        for proc in run["procs"].values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for k, proc in run["procs"].items():
+        phase("dryrun", command=" ".join(proc.args[2:]),
+              exit=proc.returncode, wall_s=f"{walls[k]:.2f}")
+        for line in outs[k].strip().splitlines()[-4:]:
+            print(f"  {line}")
+        check(proc.returncode == 0, f"the {k} dry run exited "
+              f"{proc.returncode}")
+    recs = (json.loads(run["single"].read_text())
+            + json.loads(run["multi"].read_text()))
+    counts = collections.Counter((r["mesh"], r["status"]) for r in recs)
+    from repro_torch.benchmarks.roofline import fmt_table
+    for line in fmt_table(recs, "single").splitlines():
+        print(f"  {line}")
+    for r in recs:
+        if r["mesh"] == "multi":
+            ro = r["roofline"]
+            phase("dryrun", mesh="multi (2, 16, 16)", arch=r["arch"],
+                  shape=r["shape"], status=r["status"],
+                  flops=f"{ro['flops']:.4e}",
+                  peak_gb=f"{r['memory']['peak_bytes'] / 1e9:.2f}",
+                  coll_count=json.dumps(ro["coll_count_by_kind"]))
+    by_status = {f"{m}_{st}": n for (m, st), n in sorted(counts.items())}
+    phase("dryrun", single_s=f"{walls['single']:.1f}",
+          multi_s=f"{walls['multi']:.1f}", jobs=DRYRUN_JOBS,
+          beside="the distribution phases", **by_status)
+    skips = {(r["arch"], r["shape"]) for r in recs
+             if r["mesh"] == "single" and r["status"] == "skipped"}
+    check(sum(1 for r in recs if r["mesh"] == "single") == 40
+          and counts[("single", "ok")] == 33
+          and skips == {(a, s) for a, s, _ in skipped_cells()}
+          and all(r["status"] in ("ok", "skipped") for r in recs)
+          and counts[("multi", "ok")] == 3,
+          f"dry run: {dict(counts)}")
+    check(not (ROOT / "results" / "dryrun.json").exists()
+          and not (ROOT / "results" / "perf.json").exists(),
+          "the dry run wrote under results/")
+    return {"counts": by_status, "single_s": walls["single"],
+            "multi_s": walls["multi"]}
+
+
 # ---------------------------------------------------------------------------
 # distribution: ranks spawned here, each a module-level function of this
 # file (spawn_world pickles it by name), all on the one card
 # ---------------------------------------------------------------------------
+
+def _dist_train_cfg():
+    """[dist_nccl1], [dist_train] and [dist_elastic]'s model."""
+    from repro_torch.configs import get_config
+    return cut_depth(get_config("llama3.2-1b"),
+                     DIST_TRAIN_LAYERS).replace(remat="full")
+
 
 def _dist_setup():
     """A rank's common set-up: f32 products in full f32, two host threads
@@ -1554,11 +1625,10 @@ def _dist_world1(rank, world):
     mesh over NCCL."""
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.sharding import comm
     dev = _dist_setup()
-    cfg = get_config("llama3.2-1b").replace(remat="full")
+    cfg = _dist_train_cfg()
     ref_rows, _, _, _, ref = _dist_train_run(cfg, dev)
     mesh = make_host_mesh(1, dev)
     comm.STATS.reset()
@@ -1575,19 +1645,19 @@ def _dist_world1(rank, world):
 
 def _dist_world4(rank, world, ckpt: str):
     """[dist_train] at (2, 2) against rank 0's one-rank run;
-    [dist_compress] over the 4 ranks; the save half of [dist_elastic]."""
+    [dist_compress] over the 4 ranks; the save half of [dist_elastic];
+    then [dist_recurrent]'s (1, 4) phases (:func:`_dist_recurrent_ranks`)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.checkpoint import save_checkpoint
-    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import init_params, model_struct
     from repro_torch.runtime import compressed_allreduce
     from repro_torch.sharding import comm, param_pspecs
     dev = _dist_setup()
     out = {"backend": dist.get_backend()}
-    cfg = get_config("llama3.2-1b").replace(remat="full")
+    cfg = _dist_train_cfg()
     ref = ref_rows = None
     if rank == 0:
         ref_rows, _, out["ref_state"], _, ref = _dist_train_run(cfg, dev)
@@ -1641,6 +1711,13 @@ def _dist_world4(rank, world, ckpt: str):
                     process_count=world)
     out["save_s"] = time.perf_counter() - t0
     dist.barrier()
+    del params
+    torch.cuda.empty_cache()
+
+    # [dist_recurrent] at (1, 4), in this world (no second spawn)
+    t0 = time.perf_counter()
+    out["recurrent"] = _dist_recurrent_ranks(rank, world)
+    out["recurrent_s"] = time.perf_counter() - t0
     return out
 
 
@@ -1714,12 +1791,35 @@ def _dist_world2(rank, world, ckpt: str):
         out["logits_max_abs_err"] = max_err(full, ref)
         out["ref_logits_max_abs"] = ref.abs().max().item()
     out["finite"] = finite
-    del full, ref, caches, logits, model
+    del full, caches, logits
+
+    # [dist_qseq]: the same weights under score_shard="qseq": each rank
+    # projects q, k and v of its own 2048 / 2 rows, all-gathers k and v,
+    # and attends with its rows through K3 at their offset
+    qcfg = cfg.replace(score_shard="qseq")
+    prefill(model, qcfg, mine)                          # warm-up
+    comm.STATS.reset()
+    ops.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = prefill(model, qcfg, mine)
+    torch.cuda.synchronize()
+    out["qseq"] = {"wall": time.perf_counter() - t0,
+                   "k3_launches": ops.flash_attention.launches,
+                   "q_offset": mesh.get_local_rank("model")
+                   * PREFILL_S // mesh["model"].size(),
+                   "comm": comm.STATS.as_dict()}
+    full = full_tensor(logits)[..., :lcfg.vocab_size]
+    out["qseq"]["finite"] = bool(torch.isfinite(full).all())
+    if rank == 0:
+        out["qseq"]["logits_max_abs_err"] = max_err(full, ref)
+    del full, ref, logits, model
     torch.cuda.empty_cache()
 
     # [dist_elastic], restore: the 4 ranks' (2, 2) checkpoint onto the
     # survivors' mesh; each leaf bit-equal to the same draw made on it
-    cfg32 = get_config("llama3.2-1b")
+    cfg32 = _dist_train_cfg()
+    struct = model_struct(cfg32)
     new = survivors_mesh(list(range(world)), ("data", "model"), 2, dev)
     specs = param_pspecs(struct, cfg32, new)
     like = tree_map(lambda p: torch.empty(p.shape, device="meta"), struct)
@@ -1740,6 +1840,232 @@ def _dist_world2(rank, world, ckpt: str):
     return out
 
 
+def _value_major(wkv):
+    """A one-rank RWKV-6 state [B, H, hd, hd] value-major, [B, hd, d]: the
+    layout the mesh keeps it in."""
+    B, H, hd, _ = wkv.shape
+    return wkv.transpose(1, 2).reshape(B, hd, H * hd)
+
+
+def _layer_on_mesh(fn, params, x, cfg, lay, kernel):
+    """``fn`` (a temporal-mix layer) with ``use_kernel=True`` on this
+    rank's rows of ``x`` on ``lay``: (output and state gathered, wall, the
+    kernel's launches)."""
+    from repro_torch.sharding import comm
+    with torch.inference_mode():
+        fn(params, comm.chunk(x, 1, lay.model), cfg=cfg, use_kernel=True,
+           lay=lay)                                     # warm-up
+        kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, state = fn(params, comm.chunk(x, 1, lay.model), cfg=cfg,
+                        use_kernel=True, lay=lay)
+        torch.cuda.synchronize()
+        wall, n = time.perf_counter() - t0, kernel.launches
+        got = comm.all_gather(got, 1, lay.model)
+        state = {k: comm.all_gather(t, t.dim() - 1, lay.model)
+                 for k, t in state.items()}
+    return got, state, wall, n
+
+
+def _layer_errs(got, state, want, want_state) -> dict:
+    """A layer's gathered output and state on a mesh against one rank's:
+    the largest differences (the RWKV-6 state compared value-major)."""
+    if "wkv" in want_state:
+        want_state = dict(want_state, wkv=_value_major(want_state["wkv"]))
+    return {"out_err": max_err(got, want),
+            "out_max": want.abs().max().item(),
+            "state_err": {k: max_err(state[k], want_state[k])
+                          for k in want_state}}
+
+
+def _f32_block(src):
+    """A layer's parameter block in f32, each tensor marked as ``src``'s
+    (the mesh dimensions it is split over)."""
+    from repro_torch.models.base import Params
+    from repro_torch.sharding.layout import mark, shard_of
+    p = Params({n: t.float() for n, t in src.named_parameters()})
+    if hasattr(next(src.parameters()), "_mesh_shard"):
+        for n, t in src.named_parameters():
+            mark(getattr(p, n), shard_of(t))
+    return p
+
+
+def _dist_recurrent_ranks(rank, world):
+    """[dist_recurrent] at (1, 4), run by [dist_train]'s 4 ranks: recurrentgemma-2b (10 heads over 4:
+    qseq; 640 LRU channels a rank) and rwkv6-3b (40 heads, 10 a rank) at
+    full width, cut as DIST_REC_LAYERS says: the prefill through the mesh
+    (recurrentgemma-2b's local layer through K3 at each rank's offset),
+    layer 0's temporal mix with use_kernel=True (K4 on a rank's 640
+    channels, K5 on its 10 heads) and one train_cell step, each against
+    rank 0's one-rank run on the same draw."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import Shape, get_config
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import mesh_config, prefill, train_cell
+    from repro_torch.models import Transformer, init_params, model_struct
+    from repro_torch.models import recurrent
+    from repro_torch.models.base import (LOCAL, RECURRENT, cycle_plan,
+                                         tree_leaves)
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import full_tensor
+    from repro_torch.sharding import comm, local_batch, param_pspecs
+    from repro_torch.sharding.layout import Layout
+    dev = _dist_setup()
+    mesh = make_host_mesh(4, dev)
+    lay = Layout(mesh, batch=True, seq=True)
+    out = {"backend": dist.get_backend()}
+
+    def gen(seed=SEED):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    tokens = torch.randint(0, 1 << 16, (PREFILL_B, PREFILL_S),
+                           generator=gen(), device=dev)
+    for arch in DIST_REC_LAYERS:
+        n = DIST_REC_LAYERS[arch]
+        full = get_config(arch)
+        if arch == "recurrentgemma-2b":
+            cut = full.replace(n_layers=n, layer_plan=cycle_plan(
+                (RECURRENT, RECURRENT, LOCAL), n), attn_impl="flash")
+            dtype, fn, sub, kernel = (torch.bfloat16, recurrent.rglru,
+                                      "rglru", ops.rglru_scan)
+        else:
+            cut = cut_depth(full, n)
+            dtype, fn, sub, kernel = (torch.float32,
+                                      recurrent.rwkv6_time_mix, "tm",
+                                      ops.rwkv6_scan)
+        cut = cut.replace(attn_dtype="bf16").validate()
+        batch = {"tokens": tokens % cut.vocab_size}
+        struct = model_struct(cut)
+        res = {"layers": n}
+        one = ref = None
+        if rank == 0:
+            one = Transformer(cut, init_params(struct, gen(), dtype=dtype,
+                                               device=dev))
+            ref = prefill(one, cut, batch)[0]
+        mcfg = mesh_config(cut, mesh, PREFILL_B)
+        model = Transformer(mcfg, init_params(
+            struct, gen(), dtype=dtype, device=dev, mesh=mesh,
+            specs=param_pspecs(struct, mcfg, mesh)))
+        mine = local_batch(batch, mcfg, mesh)
+        prefill(model, mcfg, mine)                      # warm-up
+        comm.STATS.reset()
+        ops.flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(model, mcfg, mine)
+        torch.cuda.synchronize()
+        res["prefill"] = {"wall": time.perf_counter() - t0,
+                          "k3_launches": ops.flash_attention.launches,
+                          "score_shard": mcfg.score_shard,
+                          "dtype": str(dtype)[6:],
+                          "comm_gb": comm.STATS.bytes / 1e9}
+        # the last position's logits, gathered over the vocab's split
+        loc = logits.to_local()
+        last = loc[:, -1].contiguous()
+        if loc.shape[-1] != cut.padded_vocab:
+            last = comm.all_gather(last, 1, lay.model)
+        last = last[:, :cut.vocab_size]
+        res["prefill"]["finite"] = bool(torch.isfinite(loc).all())
+        if rank == 0:
+            res["prefill"]["err"] = max_err(last, ref[:, -1])
+            res["prefill"]["ref_max"] = ref[:, -1].abs().max().item()
+        del logits, caches, loc, last, ref
+
+        # layer 0's temporal mix, f32, use_kernel=True
+        x = torch.randn((PREFILL_B, PREFILL_S, cut.d_model), generator=gen(
+            SEED + 1), device=dev)
+        params = _f32_block(getattr(getattr(model.segments[0][0], "0"), sub))
+        got, state, wall, k = _layer_on_mesh(fn, params, x, mcfg, lay,
+                                             kernel)
+        res["layer"] = {"wall": wall, "launches": k}
+        if rank == 0:
+            with torch.inference_mode():
+                want, want_state = fn(_f32_block(getattr(
+                    getattr(one.segments[0][0], "0"), sub)), x, cfg=cut,
+                    use_kernel=True)
+            res["layer"].update(_layer_errs(got, state, want, want_state))
+        del one, model, params, got, state, x
+        torch.cuda.empty_cache()
+
+        # one train_cell step, bf16 compute from f32 masters
+        tcut = cut.replace(attn_impl="reference")
+        shape = Shape("dist_recurrent", DIST_REC_TRAIN_S, DIST_REC_TRAIN_B,
+                      "train")
+        tb = [{k_: torch.from_numpy(v).to(dev) for k_, v in SyntheticPipeline(
+            tcut, DIST_REC_TRAIN_B, DIST_REC_TRAIN_S).get(0).items()}]
+        ref_rows = ref_leaves = None
+        if rank == 0:
+            cell = train_cell(tcut, shape, None)
+            p1 = init_params(model_struct(cell.cfg), gen(), device=dev)
+            ref_rows = _cell_run(cell, p1, adamw_init(p1), tb, True)
+            ref_leaves = tree_leaves(p1)
+        cell = train_cell(tcut, shape, mesh)
+        pm = init_params(model_struct(cell.cfg), gen(), device=dev,
+                         mesh=mesh, specs=cell.in_shardings[0])
+        comm.STATS.reset()
+        rows = _cell_run(cell, pm, adamw_init(pm), tb, True)
+        res["train"] = {"rows": rows, "comm_gb": comm.STATS.bytes / 1e9}
+        leaves = [full_tensor(t) for t in tree_leaves(pm)]
+        if rank == 0:
+            res["train"].update(ref_rows=ref_rows, stats=_pair_stats(
+                rows, ref_rows, leaves, ref_leaves, AdamWConfig().lr))
+        del pm, leaves, ref_leaves, cell
+        torch.cuda.empty_cache()
+        out[arch] = res
+    return out
+
+
+def _dist_world_split_head(rank, world):
+    """[dist_recurrent], the split head: rwkv6-3b's time mix at (1, 16),
+    full width, 1 x SPLIT_HEAD_S, f32: each rank's 160 channels are 2.5
+    heads, and it runs K5 on the 3 heads they touch, v zero outside them;
+    against rank 0's one-rank layer (K5 on all 40 heads)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models import recurrent
+    from repro_torch.models.base import Params, partition_specs
+    from repro_torch.models.transformer import local_params
+    from repro_torch.sharding.layout import Layout
+    from repro_torch.sharding.specs import logical_rules
+    dev = _dist_setup()
+    torch.set_num_threads(1)             # 16 ranks on the host's cores
+    mesh = make_host_mesh(world, dev)
+    lay = Layout(mesh, batch=False, seq=True)
+    cfg = get_config("rwkv6-3b")
+    struct = recurrent.rwkv6_struct(cfg)["tm"]
+    specs = partition_specs(struct, logical_rules(cfg, mesh))
+    params = local_params(init_params(
+        struct, torch.Generator(device=dev).manual_seed(SEED), device=dev,
+        mesh=mesh, specs=specs))
+    x = torch.randn((1, SPLIT_HEAD_S, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(
+                        SEED + 1))
+    got, state, wall, n = _layer_on_mesh(recurrent.rwkv6_time_mix, params,
+                                         x, cfg, lay, ops.rwkv6_scan)
+    c = cfg.d_model // world
+    c0, hd = lay.tp_rank * c, cfg.rwkv_head_dim
+    out = {"backend": dist.get_backend(), "wall": wall, "launches": n,
+           "channels": (c0, c0 + c),
+           "heads": (c0 // hd, -(-(c0 + c) // hd))}
+    if rank == 0:
+        whole = Params(init_params(
+            struct, torch.Generator(device=dev).manual_seed(SEED),
+            device=dev))
+        with torch.inference_mode():
+            want, want_state = recurrent.rwkv6_time_mix(
+                whole, x, cfg=cfg, use_kernel=True)
+        out.update(_layer_errs(got, state, want, want_state))
+    return out
+
+
 def dist_phases(*, launches) -> dict:
     """The distribution phases: ranks spawned by this script on the one
     card, (1, 1) over NCCL, (2, 2) and (1, 2) over gloo (NCCL refuses two
@@ -1755,6 +2081,7 @@ def dist_phases(*, launches) -> dict:
     flip = _adamw_flip_bound(DIST_TRAIN_STEPS, DIST_TRAIN_LR)
     [r1] = spawn_world(_dist_world1, 1, device="cuda")
     phase("dist_nccl1", arch="llama3.2-1b", mesh="(1, 1)",
+          layers=f"{DIST_TRAIN_LAYERS} of 16",
           backend=r1["backend"], steps=DIST_TRAIN_STEPS,
           tokens=f"{DIST_TRAIN_B}x{DIST_TRAIN_S}",
           losses=",".join(f"{x:.6f}" for x, _ in r1["rows"]),
@@ -1785,6 +2112,7 @@ def dist_phases(*, launches) -> dict:
               collectives=res["comm"]["calls"],
               collective_gb=f"{res['comm']['bytes'] / gb:.3f}")
     phase("dist_train", arch="llama3.2-1b", mesh="(data 2, model 2)",
+          layers=f"{DIST_TRAIN_LAYERS} of 16",
           dtype="float32", remat="full", steps=DIST_TRAIN_STEPS,
           tokens=f"{DIST_TRAIN_B}x{DIST_TRAIN_S}",
           losses=",".join(f"{x:.6f}" for x, _ in a["rows"]),
@@ -1855,10 +2183,135 @@ def dist_phases(*, launches) -> dict:
     check(all(r["elastic"]["bit_equal"] == e["leaves"]
               and r["elastic"]["placed_as_specified"] == e["leaves"]
               for r in r2), f"dist_elastic: {e}")
-    phase("dist", world4_s=f"{world4_s:.1f}",
-          world2_s=f"{time.perf_counter() - t0:.1f}")
+    for r, res in enumerate(r2):
+        q = res["qseq"]
+        launches["flash_attention"][f"llama3.2-1b dist_qseq rank {r}"] = \
+            q["k3_launches"]
+        phase("dist_qseq", rank=r, q_offset=q["q_offset"],
+              k3_launches=q["k3_launches"], wall_s=f"{q['wall']:.4f}",
+              collectives=q["comm"]["calls"],
+              collective_gb=f"{q['comm']['bytes'] / gb:.3f}")
+    q = b["qseq"]
+    phase("dist_qseq", arch="llama3.2-1b", mesh="(data 1, model 2)",
+          score_shard="qseq (forced: 32 heads divide 2)",
+          tokens=f"{PREFILL_B}x{PREFILL_S}", params="bf16",
+          logits_max_abs_err=f"{q['logits_max_abs_err']:.3e}",
+          ref_logits_max_abs=f"{b['ref_logits_max_abs']:.3e}", rtol=rtol)
+    check(all(r["qseq"]["k3_launches"] == 16 and r["qseq"]["finite"]
+              for r in r2), "dist_qseq: a rank did not launch K3 16 times")
+    check(sorted(r["qseq"]["q_offset"] for r in r2) == [0, PREFILL_S // 2],
+          "dist_qseq: the ranks' query rows are not [0, S/2) and [S/2, S)")
+    check(q["logits_max_abs_err"] <= rtol * b["ref_logits_max_abs"],
+          f"dist_qseq: logits differ by {q['logits_max_abs_err']}")
+    world2_s = time.perf_counter() - t0
+    rec = dist_recurrent_phases([r["recurrent"] for r in r4],
+                                launches=launches)
+    phase("dist", world4_s=f"{world4_s:.1f}", world2_s=f"{world2_s:.1f}",
+          recurrent_1x4_s=f"{a['recurrent_s']:.1f}",
+          world_split_head_s=f"{rec['split_head']['world_s']:.1f}")
     return {"k3_launches_per_rank": [r["k3_launches"] for r in r2],
-            "prefill_wall_s": [r["wall"] for r in r2]}
+            "prefill_wall_s": [r["wall"] for r in r2],
+            "qseq_k3_launches_per_rank": [r["qseq"]["k3_launches"]
+                                          for r in r2],
+            "qseq_prefill_wall_s": [r["qseq"]["wall"] for r in r2],
+            "recurrent": rec}
+
+
+def dist_recurrent_phases(rr, *, launches) -> dict:
+    """[dist_recurrent]: the recurrent archs at (1, 4) (``rr``, each
+    rank's :func:`_dist_recurrent_ranks`), then the split head at (1, 16)
+    (:func:`_dist_world_split_head`).  Returns their K4 / K5 numbers."""
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.optim import AdamWConfig
+
+    lr = AdamWConfig().lr
+    rec: dict = {}
+    for arch in DIST_REC_LAYERS:
+        kname = "rglru_scan" if arch == "recurrentgemma-2b" else "rwkv6_scan"
+        for r, res in enumerate(rr):
+            x = res[arch]
+            if x["prefill"]["k3_launches"]:
+                launches["flash_attention"][
+                    f"{arch} dist_recurrent prefill rank {r}"] = \
+                    x["prefill"]["k3_launches"]
+            launches[kname][f"{arch} dist_recurrent layer 0 rank {r}"] = \
+                x["layer"]["launches"]
+            phase("dist_recurrent", arch=arch, rank=r,
+                  prefill_wall_s=f"{x['prefill']['wall']:.4f}",
+                  k3_launches=x["prefill"]["k3_launches"],
+                  prefill_collective_gb=f"{x['prefill']['comm_gb']:.3f}",
+                  layer_wall_s=f"{x['layer']['wall']:.4f}",
+                  **{f"{kname}_launches": x["layer"]["launches"]},
+                  train_step_s=f"{x['train']['rows'][0][2]:.4f}",
+                  train_collective_gb=f"{x['train']['comm_gb']:.3f}")
+        a0 = rr[0][arch]
+        pf, ly = a0["prefill"], a0["layer"]
+        dtype = getattr(torch, pf["dtype"])
+        ptol = PREFILL_LOGITS_RTOL[dtype]
+        phase("dist_recurrent", arch=arch, mesh="(data 1, model 4)",
+              part="prefill", layers=f"{a0['layers']} at full width",
+              tokens=f"{PREFILL_B}x{PREFILL_S}", dtype=pf["dtype"],
+              score_shard=pf["score_shard"],
+              last_logits_max_abs_err=f"{pf['err']:.3e}",
+              ref_logits_max_abs=f"{pf['ref_max']:.3e}", rtol=ptol)
+        k3 = 1 if arch == "recurrentgemma-2b" else 0
+        check(all(res[arch]["prefill"]["finite"]
+                  and res[arch]["prefill"]["k3_launches"] == k3
+                  for res in rr),
+              f"dist_recurrent {arch}: prefill not finite or K3 launches "
+              f"{[res[arch]['prefill']['k3_launches'] for res in rr]}")
+        check(pf["err"] <= ptol * pf["ref_max"],
+              f"dist_recurrent {arch}: prefill logits differ by {pf['err']}")
+        phase("dist_recurrent", arch=arch, part="layer 0, use_kernel=True",
+              dtype="float32", shape=(PREFILL_B, PREFILL_S),
+              out_max_abs_err=f"{ly['out_err']:.3e}",
+              out_max_abs=f"{ly['out_max']:.3e}",
+              state_max_abs_err={k: f"{e:.3e}" for k, e in
+                                 ly["state_err"].items()}, tol=LAYER_TOL)
+        check(all(res[arch]["layer"]["launches"] == 1 for res in rr),
+              f"dist_recurrent {arch}: a rank did not launch {kname} once")
+        check(max(ly["out_err"], *ly["state_err"].values()) <= LAYER_TOL,
+              f"dist_recurrent {arch}: layer 0 differs from one rank {ly}")
+        tr = a0["train"]
+        _pair_hold(f"{arch} (1, 4) vs one rank", tr["rows"], tr["ref_rows"],
+                   None, None, lr, stats=tr["stats"],
+                   phase_name="dist_recurrent", rtol=DIST_REC_RTOL,
+                   norm_rtol=None, mean_lr=DIST_REC_MEAN_LR,
+                   tokens=f"{DIST_REC_TRAIN_B}x{DIST_REC_TRAIN_S}",
+                   step_s=f"{tr['rows'][0][2]:.3f}",
+                   one_rank_step_s=f"{tr['ref_rows'][0][2]:.3f}")
+        rec[arch] = {"layer_wall_s": [res[arch]["layer"]["wall"]
+                                      for res in rr],
+                     "layer_launches": [res[arch]["layer"]["launches"]
+                                        for res in rr],
+                     "layer_max_abs_err": ly["out_err"]}
+    t0 = time.perf_counter()
+    rs = spawn_world(_dist_world_split_head, SPLIT_HEAD_RANKS, device="cuda")
+    for r, res in enumerate(rs):
+        launches["rwkv6_scan"][f"rwkv6-3b dist_recurrent split head rank "
+                               f"{r}"] = res["launches"]
+    s0 = rs[0]
+    phase("dist_recurrent", arch="rwkv6-3b", part="time mix, split head",
+          mesh=f"(data 1, model {SPLIT_HEAD_RANKS})", dtype="float32",
+          tokens=f"1x{SPLIT_HEAD_S}", backend=s0["backend"],
+          channels=[tuple(r["channels"]) for r in rs[:3]],
+          heads=[tuple(r["heads"]) for r in rs[:3]],
+          k5_launches=[r["launches"] for r in rs],
+          wall_s=",".join(f"{r['wall']:.4f}" for r in rs),
+          out_max_abs_err=f"{s0['out_err']:.3e}",
+          out_max_abs=f"{s0['out_max']:.3e}",
+          state_max_abs_err={k: f"{e:.3e}" for k, e in
+                             s0["state_err"].items()}, tol=LAYER_TOL)
+    check(all(r["launches"] == 1 for r in rs),
+          "dist_recurrent split head: a rank did not launch K5 once")
+    check(max(s0["out_err"], *s0["state_err"].values()) <= LAYER_TOL,
+          f"dist_recurrent split head: differs from one rank {s0}")
+    rec["split_head"] = {"wall_s": [r["wall"] for r in rs],
+                         "heads": [list(r["heads"]) for r in rs],
+                         "max_abs_err": s0["out_err"],
+                         "world_s": time.perf_counter() - t0}
+    return rec
+
 
 
 def train_flops(cfg, B: int, S: int) -> float:
@@ -2314,6 +2767,36 @@ def main() -> int:
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
         check(err <= tol, f"{name}: max abs err {err} > {tol}")
         del q, k, v, got, want
+
+    # K3 on a rank's own query rows [a, b) of S at q_offset a, over every
+    # key: recurrentgemma-2b's local layer as rank 1 of 4 sees it
+    # ([dist_recurrent]), hd 64 GQA off the q tile, and the CUDA-core
+    # kernel (f32) off the tile with a window; against the twin at the
+    # offset and the whole-row kernel's rows
+    for name, B, S, (a, b), H, K, hd, window, dtype in OFFSET_CASES:
+        q, k, v = qkv(B, S, H, K, hd, dtype)
+        qr = q[:, a:b].contiguous()
+        got = ops.flash_attention(qr, k, v, causal=True, window=window,
+                                  q_offset=a)
+        bq, bk = fa.tiles(b - a, S, hd, dtype=dtype)
+        want = fa.flash_attention_plain(qr, k, v, causal=True,
+                                        window=window, bq=bq, bk=bk,
+                                        q_offset=a)
+        rows = ops.flash_attention(q, k, v, causal=True,
+                                   window=window)[:, a:b]
+        torch.cuda.synchronize()
+        err = errs[name] = max_err(got, want)
+        tol = TOLERANCE[dtype]
+        phase("kernel_check", kernel="flash_attention", case=name,
+              shape=f"B{B}xS{S}xH{H}xK{K}xhd{hd}", rows=f"[{a}, {b})",
+              q_offset=a, dtype=str(dtype)[6:], causal=True, window=window,
+              tiles=f"{bq}x{bk}", max_abs_err=f"{err:.3e}",
+              whole_rows_max_abs_err=f"{max_err(got, rows):.3e}", tol=tol)
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        check(err <= tol and max_err(got, rows) <= tol,
+              f"{name}: max abs err {err} (whole rows "
+              f"{max_err(got, rows)}) > {tol}")
+        del q, k, v, qr, got, want, rows
 
     # K4 and K5 split time into segments; each twin walks the kernel's
     # segments, so K4's h and K5's s_last must be bit-equal to it.  The
@@ -3383,35 +3866,52 @@ def main() -> int:
     # 5k. training on the card ------------------------------------------------
     train_phases(run_path=run_path, dev=dev)
 
-    # 5l'. the cells and the dry run ---------------------------------------
+    # 5l'. the cells; the dry run's sweeps, on the host beside the next ------
     cell_phases(run_path=run_path, dev=dev)
+    dryrun = dryrun_start()
 
     # 5l. distribution: ranks sharing the card ---------------------------------
-    dist_numbers = dist_phases(launches=launches)
+    try:
+        dist_numbers = dist_phases(launches=launches)
+    except BaseException:
+        for proc in dryrun["procs"].values():
+            proc.kill()
+            proc.wait()
+        raise
+    dryrun_finish(dryrun)
 
     # 6. kernel times at the main paths' shapes ------------------------------
-    def attention_times(B, S, H, K, hd, window):
+    def attention_times(B, S, H, K, hd, window, rows=None):
+        """K3's times at a main path's shape; ``rows`` (a, b): a rank's
+        query rows [a, b) at q_offset a, SDPA given the same rows' mask."""
         q, k, v = qkv(B, S, H, K, hd, torch.bfloat16)
-        bq, bk = fa.tiles(S, S, hd, dtype=torch.bfloat16)
+        a, b = rows or (0, S)
+        q = q[:, a:b].contiguous()
+        bq, bk = fa.tiles(b - a, S, hd, dtype=torch.bfloat16)
         ms = cuda_time_ms(lambda: ops.flash_attention(
-            q, k, v, causal=True, window=window), 20)
+            q, k, v, causal=True, window=window, q_offset=a), 20)
         plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(
-            q, k, v, causal=True, window=window, bq=bq, bk=bk), 5, warmup=1)
-        # a window that reaches past S leaves the causal mask SDPA takes
+            q, k, v, causal=True, window=window, bq=bq, bk=bk, q_offset=a),
+            2, warmup=1)
+        # whole rows with a window that reaches past S: the causal mask
+        # SDPA takes; else the rows' mask
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         mask = None
-        if 0 < window < S:
-            i = torch.arange(S, device=dev)
-            diff = i[:, None] - i[None, :]
-            mask = (diff >= 0) & (diff < window)
+        if rows is not None or 0 < window < S:
+            diff = (torch.arange(a, b, device=dev)[:, None]
+                    - torch.arange(S, device=dev)[None, :])
+            mask = diff >= 0
+            if window > 0:
+                mask &= diff < window
         library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, is_causal=mask is None,
             enable_gqa=True), 20)
-        flops = fa.attention_flops(B, S, S, H, hd, causal=True,
-                                   window=window)
+        flops = fa.attention_flops(B, b - a, S, H, hd, causal=True,
+                                   window=window, q_offset=a)
         nbytes = fa.attention_bytes(q, k, v)
         bound_ms, bound_by = bound(flops, nbytes, torch.bfloat16)
-        shape = f"B{B}xS{S}xH{H}xK{K}xhd{hd}"
+        shape = f"B{B}xS{S}xH{H}xK{K}xhd{hd}" + (
+            f" rows [{a}, {b})" if rows else "")
         phase("kernel_time", kernel="flash_attention", shape=shape,
               dtype="bf16", window=window, ms=f"{ms:.4f}",
               plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
@@ -3434,6 +3934,9 @@ def main() -> int:
                                          0)
     attn_gqa = {arch: attention_times(PREFILL_B, PREFILL_S, *attn, 0)
                 for arch, attn in gqa_attn.items()}
+    attn_rows = {name: attention_times(B, S, H, K, hd, window, rows=rows)
+                 for name, B, S, rows, H, K, hd, window, dtype in OFFSET_CASES
+                 if dtype == torch.bfloat16}
 
     # K4 and K5 at the prefill shape, at their default segment length and
     # at the others the kernels take (the sweep the defaults come from)
@@ -3482,6 +3985,39 @@ def main() -> int:
           bytes=rw.scan_bytes(ins[0]), scratch_bytes=rwkv_scratch,
           bound_ms=f"{rwkv_bound[0]:.4f}", bound_by=rwkv_bound[1],
           roofline_share=f"{rwkv_bound[0] / rwkv_ms:.4f}")
+    del ins
+
+    # K4 and K5 at a rank's share in [dist_recurrent]: K4 on 640 of the
+    # 2560 channels (1, 4); K5 on 10 of the 40 heads (1, 4) and on the 3
+    # heads a rank of (1, 16) touches at 1 x 2048
+    def share_times(kernel, fn, plain_fn, ins, flops, nbytes, shape):
+        ms = cuda_time_ms(lambda: fn(*ins), 20)
+        plain_ms = cuda_time_ms(lambda: plain_fn(*ins), 2, warmup=1)
+        bound_ms, bound_by = bound(flops, nbytes, torch.float32)
+        phase("kernel_time", kernel=kernel, shape=shape,
+              case="a rank's share", dtype="float32", ms=f"{ms:.4f}",
+              plain_ms=f"{plain_ms:.4f}", library_ms=None,
+              bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+              roofline_share=f"{bound_ms / ms:.4f}")
+        return {"shape": shape, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None}
+
+    w4 = gcfg.lru_width // 4
+    ins = rglru_inputs(PREFILL_B, PREFILL_S, w4)
+    rglru_share = share_times(
+        "rglru_scan", ops.rglru_scan, rg.rglru_scan_plain, ins,
+        rg.scan_flops(ins[0]), rg.scan_bytes(ins[0]),
+        f"B{PREFILL_B}xS{PREFILL_S}xW{w4}")
+    rwkv_share = {}
+    for key, (B_, S_, H_) in (("1x4", (PREFILL_B, PREFILL_S,
+                                       rwkv_heads[0] // 4)),
+                              ("1x16", (1, SPLIT_HEAD_S, 3))):
+        ins = rwkv_inputs(B_, S_, H_, rwkv_heads[1])
+        rwkv_share[key] = share_times(
+            "rwkv6_scan", ops.rwkv6_scan, rw.rwkv6_scan_plain, ins,
+            rw.scan_flops(ins[0]), rw.scan_bytes(ins[0]),
+            f"B{B_}xS{S_}xH{H_}xhd{rwkv_heads[1]}")
     del ins
 
     # K2 at shape (a), the SM model's main grid
@@ -3540,6 +4076,8 @@ def main() -> int:
          **{f"hd128_gqa{H // K}": {"max_abs_err": errs[f"{arch}_bf16"],
                                    **attn_gqa[arch]}
             for arch, (H, K, _) in gqa_attn.items()},
+         **{f"rows_{name}": {"max_abs_err": errs[name], **attn_rows[name]}
+            for name in attn_rows},
          "prefills": config_numbers},
         {"name": "rglru_scan", "route": "cuda",
          "status": "redesigned",
@@ -3554,6 +4092,8 @@ def main() -> int:
          "library_ms": None, "library_note": no_library,
          "sweep_ms": rglru_sweep, "scratch_bytes": rglru_scratch,
          "ptxas": ptxas["rglru_scan"],
+         "rank_share_1x4": {**rglru_share, **dist_numbers["recurrent"][
+             "recurrentgemma-2b"]},
          **{case: bits[case] for case in bits if case.startswith("rglru")}},
         {"name": "rwkv6_scan", "route": "cuda",
          "status": "redesigned",
@@ -3568,6 +4108,10 @@ def main() -> int:
          "library_ms": None, "library_note": no_library,
          "sweep_ms": rwkv_sweep, "scratch_bytes": rwkv_scratch,
          "ptxas": ptxas["rwkv6_scan"],
+         "rank_share_1x4": {**rwkv_share["1x4"],
+                            **dist_numbers["recurrent"]["rwkv6-3b"]},
+         "split_head_1x16": {**rwkv_share["1x16"],
+                             **dist_numbers["recurrent"]["split_head"]},
          **{case: bits[case] for case in bits if case.startswith("rwkv")}},
         {"name": "hanoi_step", "route": "cuda",
          "status": "redesigned",

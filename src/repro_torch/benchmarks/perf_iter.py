@@ -17,8 +17,8 @@ Each variant keeps the JAX package's cell and ``build_cell`` kwargs and
 states what it should change; the port's terms are measured by running
 it (one rank of the production (16, 16) mesh on the meta device,
 ``launch/dryrun.py``), and no number of the JAX package's (a TPU's) is
-carried over.  The rwkv6-3b variant is refused on a mesh until the
-RWKV-6 layers have TP rules (ROADMAP item 15).  The JAX package's two
+carried over.  The rwkv6-3b variant runs the RWKV-6 layers'
+tensor-parallel form (``models/recurrent.py``).  The JAX package's two
 ``rwkv_unroll`` variants are not kept: the unroll of a ``lax.scan`` body
 has no counterpart in eager PyTorch, whose RWKV-6 layer is one kernel
 launch (K5) or one Python loop.

@@ -7,6 +7,11 @@
 //
 // Layout: q, o are [B, Sq, H, hd] and k, v are [B, Sk, K, hd] (BSHD, GQA),
 // read through their strides; only the head dimension must be contiguous.
+// q's row 0 sits at global position q_off (0 for whole rows; a rank's first
+// row when the sequence is split over ranks): the causal and window masks
+// and the kv-tile range compare q_off + row with the key's position, so a
+// q tile that starts off the kv tile grid straddles the diagonal and is
+// masked like any PARTIAL tile.
 // The kv head of query head h is h / (H / K), so no repeated k/v exists.
 // Every CTA walks only the kv tiles kv_tile_range() gives, which are exactly
 // the tiles the TPU kernel's _tile_class calls non-EMPTY: EMPTY tiles are
@@ -43,11 +48,12 @@ struct Params {
   const void* q; const void* k; const void* v; void* o;
   int B, Sq, Sk, H, K;
   int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
-  int causal, window, bq, bk;
+  int causal, window, bq, bk, q_off;
   float scale;
 };
 
-// Mirrors repro_torch.kernels.flash_attention.kv_tile_range.
+// Mirrors repro_torch.kernels.flash_attention.kv_tile_range; qs is the
+// global position of the q tile's first row.
 __device__ __forceinline__ void kv_tile_range(int qs, int bq, int bk, int nk, int causal,
                                               int window, int kv_len, int* lo, int* hi) {
   *lo = window > 0 ? max(0, qs - window + 1) / bk : 0;
@@ -56,7 +62,8 @@ __device__ __forceinline__ void kv_tile_range(int qs, int bq, int bk, int nk, in
   *hi = h;
 }
 
-// The "full" half of _tile_class: every (q, k) pair of the tile is live.
+// The "full" half of _tile_class: every (q, k) pair of the tile is live
+// (qs global, as in kv_tile_range).
 __device__ __forceinline__ bool tile_full(int qs, int ks, int bq, int bk, int causal,
                                           int window, int kv_len) {
   const int q_min = qs, q_max = qs + bq - 1, k_min = ks, k_max = ks + bk - 1;
@@ -230,7 +237,7 @@ __global__ void __launch_bounds__(THREADS) flash_attention_tc_kernel(Params p) {
 
   const int nk = (p.Sk + p.bk - 1) / p.bk;
   int lo, hi;
-  kv_tile_range(qs, p.bq, p.bk, nk, p.causal, p.window, p.Sk, &lo, &hi);
+  kv_tile_range(p.q_off + qs, p.bq, p.bk, nk, p.causal, p.window, p.Sk, &lo, &hi);
   if (lo < hi) load_kv(lo, 0);
   cp_async_commit();
   cp_async_wait<1>();               // the q tile is in
@@ -256,7 +263,9 @@ __global__ void __launch_bounds__(THREADS) flash_attention_tc_kernel(Params p) {
   for (int t = 0; t < DT; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
   const float sl2 = p.scale * LOG2E;
-  const int row0 = qs + warp * 16 + gid, row1 = row0 + 8;
+  // the global position of the thread's first row (its second is 8 on;
+  // their local rows, pos - q_off, are needed only for the store)
+  const int pos0 = p.q_off + qs + warp * 16 + gid;
 
   for (int j = lo; j < hi; ++j) {
     const int stage = (j - lo) & 1;
@@ -289,22 +298,53 @@ __global__ void __launch_bounds__(THREADS) flash_attention_tc_kernel(Params p) {
 
     // scale into the log2 domain and mask
     const int ks = j * p.bk;
-    const int n = min(p.bk, p.Sk - ks);
-    const bool masked = p.bk < BK || !tile_full(qs, ks, p.bq, p.bk, p.causal, p.window, p.Sk);
+    // Two forms of one mask.  Lane (t, e) holds key c = t * 8 + tig * 2 +
+    // (e & 1) of the tile for row pos0 (e < 2) or pos0 + 8.  Up to hd 128
+    // the direct form keeps ptxas's allocation as it was without q_off (at
+    // hd 128 the other form takes fewer registers and runs slower); above
+    // it, where the accumulator takes hd / 2 registers, the
+    // strength-reduced form (per tile only n_left and dist0, per lane
+    // compile-time constants) keeps hd 320 from spilling.
+    if constexpr (HD <= 128) {
+      const int n = min(p.bk, p.Sk - ks);
+      const bool masked =
+          p.bk < BK || !tile_full(p.q_off + qs, ks, p.bq, p.bk, p.causal, p.window, p.Sk);
 #pragma unroll
-    for (int t = 0; t < NT; ++t) {
+      for (int t = 0; t < NT; ++t) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[t][e] * sl2;
-        if (masked) {
-          const int c = t * 8 + tig * 2 + (e & 1);    // key within the tile
-          const int kj = ks + c, row = e < 2 ? row0 : row1;
-          bool live = true;
-          if (p.causal) live = row >= kj;
-          if (p.window > 0) live = live && row - kj < p.window;
-          x = c >= n ? -INFINITY : live ? x : NEG_INF;
+        for (int e = 0; e < 4; ++e) {
+          float x = s[t][e] * sl2;
+          if (masked) {
+            const int c = t * 8 + tig * 2 + (e & 1);    // key within the tile
+            const int kj = ks + c, pos = e < 2 ? pos0 : pos0 + 8;
+            bool live = true;
+            if (p.causal) live = pos >= kj;
+            if (p.window > 0) live = live && pos - kj < p.window;
+            x = c >= n ? -INFINITY : live ? x : NEG_INF;
+          }
+          s[t][e] = x;
         }
-        s[t][e] = x;
+      }
+    } else {
+      const bool masked =
+          p.bk < BK || !tile_full(p.q_off + qs, ks, p.bq, p.bk, p.causal, p.window, p.Sk);
+      const int n_left = min(p.bk, p.Sk - ks) - tig * 2;
+      const int dist0 = pos0 - ks - tig * 2;
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[t][e] * sl2;
+          if (masked) {
+            const int c = t * 8 + (e & 1);              // key past tig * 2
+            const int d = dist0 + (e < 2 ? 0 : 8) - c;  // row pos - key pos
+            bool live = true;
+            if (p.causal) live = d >= 0;
+            if (p.window > 0) live = live && d < p.window;
+            x = c >= n_left ? -INFINITY : live ? x : NEG_INF;
+          }
+          s[t][e] = x;
+        }
       }
     }
 
@@ -366,6 +406,7 @@ __global__ void __launch_bounds__(THREADS) flash_attention_tc_kernel(Params p) {
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
   bf16* og = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh + tig * 2;
+  const int row0 = pos0 - p.q_off, row1 = row0 + 8;
   if (warp * 16 + gid < q_rows) {
     bf16* orow = og + row0 * p.o_ss;
 #pragma unroll
@@ -438,6 +479,7 @@ __global__ void __launch_bounds__(max_threads(G)) flash_attention_kernel(Params 
   const int b = blockIdx.z;
   const int kvh = h / (p.H / p.K);
   const int row = qs + tid / G;
+  const int pos = p.q_off + row;          // the row's global position
   const bool row_live = row < p.Sq;
   const int kv_len = p.Sk;
   // the lanes of this warp that exist (the last warp may be partial)
@@ -462,7 +504,7 @@ __global__ void __launch_bounds__(max_threads(G)) flash_attention_kernel(Params 
 
   const int nk = (p.Sk + p.bk - 1) / p.bk;
   int lo, hi;
-  kv_tile_range(qs, p.bq, p.bk, nk, p.causal, p.window, kv_len, &lo, &hi);
+  kv_tile_range(p.q_off + qs, p.bq, p.bk, nk, p.causal, p.window, kv_len, &lo, &hi);
 
   for (int j = lo; j < hi; ++j) {
     const int ks = j * p.bk;
@@ -479,7 +521,7 @@ __global__ void __launch_bounds__(max_threads(G)) flash_attention_kernel(Params 
       v_tile[e] = vv;
     }
     __syncthreads();
-    const bool full = tile_full(qs, ks, p.bq, p.bk, p.causal, p.window, kv_len);
+    const bool full = tile_full(p.q_off + qs, ks, p.bq, p.bk, p.causal, p.window, kv_len);
 
     for (int c0 = 0; c0 < n; c0 += CH) {
       float s[CH];
@@ -502,8 +544,8 @@ __global__ void __launch_bounds__(max_threads(G)) flash_attention_kernel(Params 
         if (!full) {
           const int kj = ks + c0 + c;
           bool live = kj < kv_len;
-          if (p.causal) live = live && row >= kj;
-          if (p.window > 0) live = live && row - kj < p.window;
+          if (p.causal) live = live && pos >= kj;
+          if (p.window > 0) live = live && pos - kj < p.window;
           if (!live) sv = NEG_INF;
         }
         // keys past the tile's end (chunk padding) take no part at all
@@ -595,19 +637,22 @@ cudaError_t dispatch_bf16(const Params& p, int hd, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (0 on success); the caller raises on anything else.
+// dtype: 0 = float32, 1 = bfloat16.  q_off: the global position of q's row
+// 0 (keys are at 0 .. Sk-1).  Returns cudaGetLastError() after the launch
+// (0 on success); the caller raises on anything else.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype,
                         int B, int Sq, int Sk, int H, int K, int hd,
                         int64_t q_sb, int64_t q_ss, int64_t q_sh,
                         int64_t k_sb, int64_t k_ss, int64_t k_sh,
                         int64_t v_sb, int64_t v_ss, int64_t v_sh,
                         int64_t o_sb, int64_t o_ss, int64_t o_sh,
-                        int causal, int window, int bq, int bk, void* stream) {
-  if (bq < 1 || bq > MAX_BQ || bk < 1 || K < 1 || H % K) return int(cudaErrorInvalidValue);
+                        int causal, int window, int bq, int bk, int q_off,
+                        void* stream) {
+  if (bq < 1 || bq > MAX_BQ || bk < 1 || K < 1 || H % K || q_off < 0)
+    return int(cudaErrorInvalidValue);
   Params p{q, k, v, o, B, Sq, Sk, H, K,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
-           causal, window, bq, bk, float(1.0 / std::sqrt(double(hd)))};
+           causal, window, bq, bk, q_off, float(1.0 / std::sqrt(double(hd)))};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 0 ? dispatch_f32(p, hd, s)
                   : dtype == 1 ? dispatch_bf16(p, hd, s)

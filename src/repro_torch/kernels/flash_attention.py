@@ -10,6 +10,12 @@ non-EMPTY tiles of :func:`_tile_class`.  bf16 at hd 64, 128, 256 and 320
 runs on the tensor cores; f32, and bf16 at hd 8, 16 and 32, on the CUDA
 cores.  :func:`flash_attention_plain` walks the same schedule in plain torch;
 the CPU path and the on-card check use it.
+
+Both take ``q_offset``, the global position of q's row 0 (keys sit at 0 ..
+Sk-1): a rank that holds query rows [q_offset, q_offset + Sq) of a split
+sequence attends over every key with the masks and the kv-tile range of its
+own rows.  A q tile is ``bq`` of q's rows, so at an offset that is not a
+multiple of ``bq`` it straddles the diagonal, and the mask handles it.
 """
 from __future__ import annotations
 
@@ -39,7 +45,9 @@ _CHUNK = 16        # keys per online-softmax step in the CUDA-core kernel
 
 
 def _tile_class(qs, ks, bq, bk, *, causal: bool, window: int, kv_len: int):
-    """Classify tile [qs:qs+bq) x [ks:ks+bk).  Returns (empty, full)."""
+    """Classify tile [qs:qs+bq) x [ks:ks+bk), both in global positions (a
+    q tile of a rank's rows starts at q_offset + its first row).  Returns
+    (empty, full)."""
     q_min, q_max = qs, qs + bq - 1
     k_min, k_max = ks, ks + bk - 1
     empty, full = False, True
@@ -59,7 +67,10 @@ def kv_tile_range(qs: int, bq: int, bk: int, nk: int, *, causal: bool,
                   window: int, kv_len: int) -> tuple[int, int]:
     """[lo, hi) of the kv tiles a q tile visits: the first tile not EMPTY
     under the window, up to the last not EMPTY under causal and kv_len.
-    Mirrored line for line by ``kv_tile_range`` in the CUDA source."""
+    ``qs`` is the global position of the tile's first row, so the range
+    stops at the tile's last row and tiles past a rank's rows are never
+    read.  Mirrored line for line by ``kv_tile_range`` in the CUDA
+    source."""
     lo = max(0, qs - window + 1) // bk if window > 0 else 0
     hi = min(nk, -(-kv_len // bk))
     if causal:
@@ -105,7 +116,8 @@ def _instance(dtype, hd: int) -> tuple[bool, int, int] | None:
 def tiles(Sq: int, Sk: int, hd: int, bq: int | None = None,
           bk: int | None = None, *, dtype) -> tuple[int, int]:
     """The (bq, bk) the wrapper runs with: the defaults of the kernel that
-    takes (dtype, hd) where not given, cut to the sequence (at least 8)."""
+    takes (dtype, hd) where not given, bq cut to q's rows and bk to the
+    keys (at least 8 each; Sq < Sk for a rank's own rows)."""
     inst = _instance(dtype, hd)
     _, bq0, bk0 = inst if inst else (False, DEFAULT_BQ, DEFAULT_BK)
     bq = bq0 if bq is None else bq
@@ -114,11 +126,13 @@ def tiles(Sq: int, Sk: int, hd: int, bq: int | None = None,
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          bq: int = DEFAULT_BQ, bk: int = DEFAULT_BK):
+                          bq: int = DEFAULT_BQ, bk: int = DEFAULT_BK,
+                          q_offset: int = 0):
     """The kernel's function in plain torch, on its tile schedule.
 
-    q: [B, Sq, H, hd]; k, v: [B, Sk, K, hd] (GQA).  m, l and acc are f32 and
-    carried across the kv tiles of each q tile; the result is in q's dtype.
+    q: [B, Sq, H, hd], rows at global positions q_offset ..; k, v: [B, Sk,
+    K, hd] (GQA).  m, l and acc are f32 and carried across the kv tiles of
+    each q tile; the result is in q's dtype.
     """
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
@@ -135,16 +149,17 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         m = torch.full((B, K, G, n_q), NEG_INF, device=q.device)
         l = torch.zeros((B, K, G, n_q), device=q.device)
         acc = torch.zeros((B, K, G, n_q, hd), device=q.device)
-        lo, hi = kv_tile_range(qs, bq, bk, nk, causal=causal, window=window,
-                               kv_len=kv_len)
+        lo, hi = kv_tile_range(q_offset + qs, bq, bk, nk, causal=causal,
+                               window=window, kv_len=kv_len)
         for j in range(lo, hi):
             ks = j * bk
             kt, vt = kf[:, ks:ks + bk], vf[:, ks:ks + bk]
             s = torch.einsum("bqkgh,bskh->bkgqs", qt, kt) * scale
-            _, full = _tile_class(qs, ks, bq, bk, causal=causal,
+            _, full = _tile_class(q_offset + qs, ks, bq, bk, causal=causal,
                                   window=window, kv_len=kv_len)
             if not full:
-                qi = qs + torch.arange(n_q, device=q.device)[:, None]
+                qi = q_offset + qs + torch.arange(n_q,
+                                                  device=q.device)[:, None]
                 kj = ks + torch.arange(kt.shape[1], device=q.device)[None, :]
                 live = kj < kv_len
                 if causal:
@@ -176,7 +191,7 @@ def _smem_bytes(tensor_cores: bool, hd: int, bk: int) -> int:
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool, window: int, bq: int,
-                         bk: int):
+                         bk: int, q_offset: int = 0):
     """Launch the CUDA kernel on BSHD tensors, read through their strides.
 
     Raises on anything the kernel does not take; never falls back."""
@@ -205,6 +220,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int, bq: int,
             or _smem_bytes(tensor_cores, hd, bk) > _MAX_SMEM):
         raise ValueError(f"tile {bq}x{bk} out of range for head_dim {hd} in "
                          f"{q.dtype}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset {q_offset} must be at least 0")
     if min(q.stride(3), k.stride(3), v.stride(3)) != 1:
         raise ValueError("the head dimension must be contiguous")
     # the tensor-core kernel copies rows 16 bytes at a time (cp.async)
@@ -222,7 +239,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int, bq: int,
         ptr(q.data_ptr()), ptr(k.data_ptr()), ptr(v.data_ptr()),
         ptr(o.data_ptr()), _DTYPES[q.dtype], B, Sq, Sk, H, K, hd,
         *(i64(s) for t in (q, k, v, o) for s in t.stride()[:3]),
-        int(causal), int(window), bq, bk,
+        int(causal), int(window), bq, bk, int(q_offset),
         ptr(torch.cuda.current_stream(q.device).cuda_stream))
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: "
@@ -233,7 +250,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int, bq: int,
 def _argtypes(lib):
     i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
     lib.flash_attention_fwd.argtypes = (
-        [ptr] * 4 + [i32] * 7 + [i64] * 12 + [i32] * 4 + [ptr])
+        [ptr] * 4 + [i32] * 7 + [i64] * 12 + [i32] * 5 + [ptr])
     lib.flash_attention_fwd.restype = i32
 
 
@@ -241,11 +258,12 @@ _build.register("flash_attention", "flash_attention.cu", _argtypes)
 
 
 def attention_flops(B: int, Sq: int, Sk: int, H: int, hd: int, *,
-                    causal: bool, window: int) -> int:
+                    causal: bool, window: int, q_offset: int = 0) -> int:
     """FLOPs the masked attention needs: 4*hd per live (q, k) pair (q.k and
-    p.v), counted over the live pairs of this mask, not the tiles visited."""
+    p.v), counted over the live pairs of this mask (q's rows at global
+    positions q_offset ..), not the tiles visited."""
     live = 0
-    for i in range(Sq):
+    for i in range(q_offset, q_offset + Sq):
         lo = max(0, i - window + 1) if window > 0 else 0
         hi = min(Sk, i + 1) if causal else Sk
         live += max(0, hi - lo)

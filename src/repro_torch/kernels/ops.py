@@ -34,18 +34,20 @@ def _no_autograd(name: str, *tensors) -> None:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    bq: int | None = None, bk: int | None = None):
-    """q: [B, S, H, hd]; k, v: [B, S, K, hd] (GQA).  Returns [B, S, H, hd].
-    Tiles default to the kernel's for this dtype and head dim
-    (:func:`_fa.tiles`)."""
+                    bq: int | None = None, bk: int | None = None,
+                    q_offset: int = 0):
+    """q: [B, Sq, H, hd]; k, v: [B, Sk, K, hd] (GQA).  Returns [B, Sq, H,
+    hd].  q's rows sit at global positions q_offset .. (a rank's own rows
+    of a split sequence; keys at 0 .. Sk-1).  Tiles default to the
+    kernel's for this dtype and head dim (:func:`_fa.tiles`)."""
     _no_autograd("flash_attention", q, k, v)
     bq, bk = _fa.tiles(q.shape[1], k.shape[1], q.shape[3], bq, bk,
                         dtype=q.dtype)
     if q.device.type == "cpu":
         return _fa.flash_attention_plain(q, k, v, causal=causal, window=window,
-                                         bq=bq, bk=bk)
+                                         bq=bq, bk=bk, q_offset=q_offset)
     out = _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                   bq=bq, bk=bk)
+                                   bq=bq, bk=bk, q_offset=q_offset)
     _count(flash_attention)
     return out
 

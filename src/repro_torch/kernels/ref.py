@@ -56,14 +56,78 @@ def rwkv6_scan_ref(r, k, v, w, u, s0=None):
     when None).
     out_t = r_t . (S_{t-1} + diag(u) k_t v_t^T);  S_t = diag(w_t) S_{t-1} + k_t v_t^T
     Returns (out [B,S,H,hd], s_last [B,H,hd,hd]).
+
+    On the meta device (a dry run, which computes nothing) the loop's body
+    runs once and is counted S times (:class:`_MetaScan`), as the JAX
+    package's cost parser counts a ``lax.scan`` body by its trip count.
     """
     B, S, H, hd = r.shape
     s = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
          if s0 is None else s0)
+    if r.is_meta and S > 1:
+        return _MetaScan.apply(r, k, v, w, u, s)
+    return _token_loop(r, k, v, w, u, s)
+
+
+def _token_loop(r, k, v, w, u, s):
+    """:func:`rwkv6_scan_ref`'s loop over the tokens from state ``s``."""
     outs = []
-    for t in range(S):
-        at = k[:, t, :, :, None] * v[:, t, :, None, :]      # [B, H, hd, hd]
-        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
-                                 s + u[None, :, :, None] * at))
-        s = w[:, t, :, :, None] * s + at
+    for t in range(r.shape[1]):
+        out, s = _wkv_step(r[:, t], k[:, t], v[:, t], w[:, t], u, s)
+        outs.append(out)
     return torch.stack(outs, dim=1), s
+
+
+def _wkv_step(rt, kt, vt, wt, u, s):
+    """One token of :func:`rwkv6_scan_ref`: (out_t, S_t) from S_{t-1}."""
+    at = kt[:, :, :, None] * vt[:, :, None, :]              # [B, H, hd, hd]
+    out = torch.einsum("bhk,bhkv->bhv", rt, s + u[None, :, :, None] * at)
+    return out, wt[:, :, :, None] * s + at
+
+
+class _MetaScan(torch.autograd.Function):
+    """The token loop on the meta device: one step, counted S times.
+
+    Meta tensors carry no values, so every step of the loop is the same
+    work on the same shapes.  The forward runs step 0 under
+    ``hlo_static.trip_count(S)`` (its FLOPs and bytes scaled by S) and
+    stacks S copies of its output, as the loop stacks its S outputs; the
+    backward runs the step's backward once, scaled the same way.  The
+    counted FLOPs are the loop's, forward and backward, and so are the
+    forward's bytes; the backward's bytes are the steps' own (the loop's
+    autograd also writes a whole-sequence zero gradient per step's slice,
+    which is not counted).  For the memory tracker, a buffer of the three
+    state-sized tensors per step that the loop's autograd keeps is saved
+    for the backward when an input needs a gradient (as a saved tensor,
+    so that activation checkpointing drops it as it drops the loop's)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s):
+        from repro_torch.launch.hlo_static import trip_count
+        S = r.shape[1]
+        with trip_count(S):
+            out, s_last = _wkv_step(r[:, 0], k[:, 0], v[:, 0], w[:, 0], u, s)
+        kept = (torch.empty((3 * S,) + tuple(s.shape), device="meta")
+                if any(ctx.needs_input_grad) else None)
+        ctx.save_for_backward(r, k, v, w, u, s, kept)
+        return torch.stack([out] * S, dim=1), s_last
+
+    @staticmethod
+    def backward(ctx, g_out, g_s):
+        from repro_torch.launch.hlo_static import trip_count
+        full = ctx.saved_tensors[:6]
+        S = full[0].shape[1]
+        step = [t[:, 0] if i < 4 else t for i, t in enumerate(full)]
+        step = [t.detach().requires_grad_(need)
+                for t, need in zip(step, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            with trip_count(0):
+                out, s_last = _wkv_step(*step)
+            wanted = [t for t in step if t.requires_grad]
+            with trip_count(S):
+                grads = iter(torch.autograd.grad(
+                    (out, s_last), wanted, (g_out[:, 0], g_s),
+                    allow_unused=True))
+        return tuple(
+            (torch.empty_like(t) if i < 4 else next(grads)) if need else None
+            for i, (t, need) in enumerate(zip(full, ctx.needs_input_grad)))

@@ -22,11 +22,18 @@ does:
 
 A loop in the step is Python, so it runs as many times as it says, and
 its ops are counted each time: the trip counts that the HLO parser has to
-recover are here by construction.  Shapes are this rank's, so every
-number is per rank.
+recover are here by construction.  One loop is too long for that on the
+meta device: the RWKV-6 token loop (``kernels/ref.py::rwkv6_scan_ref``),
+S steps a layer, each step's ops dispatched on meta tensors (tens of
+minutes a training cell).  There every step is the same work on the same
+shapes, so the loop runs one step inside :func:`trip_count` (S), which
+scales what :class:`CostMode` counts there (FLOPs, op bytes,
+collectives) by S, the JAX package's treatment of a ``lax.scan`` body.
+Shapes are this rank's, so every number is per rank.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 
 import torch
@@ -85,6 +92,21 @@ def _written(func) -> set[int]:
             if a.alias_info is not None and a.alias_info.is_write}
 
 
+# the product of the enclosing trip_count()s: what an op counts for
+_TRIPS = [1]
+
+
+@contextlib.contextmanager
+def trip_count(n: int):
+    """Count each op run inside ``n`` times (0: not at all): a loop body
+    run once that stands for ``n`` runs of itself.  Nests."""
+    _TRIPS.append(_TRIPS[-1] * n)
+    try:
+        yield
+    finally:
+        _TRIPS.pop()
+
+
 class CostMode(TorchDispatchMode):
     """Counts one run's FLOPs, op bytes and collectives into ``self.cost``
     (a :class:`StaticCost`)."""
@@ -110,15 +132,15 @@ class CostMode(TorchDispatchMode):
             return out
         if func.is_view or name.startswith("empty") or ns != "aten":
             return out
-        c = self.cost
+        c, n = self.cost, _TRIPS[-1]
         f = flop_registry.get(func._overloadpacket)
         if f is not None:
-            c.flops += f(*args, **kwargs, out_val=out)
+            c.flops += n * f(*args, **kwargs, out_val=out)
         written = _written(func)
         read = [t for i, a in enumerate(args) if i not in written
                 for t in _tensors(a)]
         read += [t for a in kwargs.values() for t in _tensors(a)]
-        c.hbm_bytes += sum(_nbytes(t) for t in read + _tensors(out))
+        c.hbm_bytes += n * sum(_nbytes(t) for t in read + _tensors(out))
         return out
 
     def _collective(self, func, name: str, args) -> None:
@@ -131,6 +153,7 @@ class CostMode(TorchDispatchMode):
             moved = max(_nbytes(args[0]), _nbytes(args[1]))
         if kind == "all-reduce":
             moved *= 2
-        c = self.cost
-        c.coll_bytes_by_kind[kind] = c.coll_bytes_by_kind.get(kind, 0) + moved
-        c.coll_count_by_kind[kind] = c.coll_count_by_kind.get(kind, 0) + 1
+        c, n = self.cost, _TRIPS[-1]
+        c.coll_bytes_by_kind[kind] = (c.coll_bytes_by_kind.get(kind, 0)
+                                      + n * moved)
+        c.coll_count_by_kind[kind] = c.coll_count_by_kind.get(kind, 0) + n

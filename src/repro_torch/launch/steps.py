@@ -265,7 +265,8 @@ def train_cell(arch: str | ModelConfig, shape: str | Shape, mesh, *,
     ``fn(params, opt_state, batch) -> (params, opt_state, metrics)``
     updates ``params`` and ``opt_state`` in place (the JAX package
     donates them).  ``rwkv_impl`` is set on the config as the JAX package
-    sets it (the RWKV-6 layers do not run on a mesh yet, ROADMAP item 15).
+    sets it; on a mesh the RG-LRU and RWKV-6 layers run their
+    tensor-parallel forms (``models/recurrent.py``).
     The JAX package's ``tp_impl`` is not taken: its two values are one
     path here (``models/shardmap_tp.py``); nor is its ``rwkv_unroll``, a
     ``lax.scan`` unroll that eager PyTorch has no counterpart of."""
@@ -416,14 +417,17 @@ def decode_cell(arch: str | ModelConfig, shape: str | Shape, mesh, *,
     """``fn(params, caches, tokens, pos) -> (logits, caches)``: one token
     of every sequence at position ``pos`` (an int, or a 0-dim integer
     tensor on the host: the ring buffer's write index is the host's),
-    the caches updated in place."""
+    the caches updated in place.  On a mesh the caches are
+    ``cache_struct(tp_layout=True)``'s (the RWKV-6 wkv state value-major,
+    so that a head split over 'model' has no copy on two ranks), laid
+    out by ``cache_pspecs``."""
     shape = _shape(shape)
     B = shape.global_batch
     cfg = _config(arch)
     if mesh is not None:
         cfg = cfg.replace(batch_axes=_mesh_batch_axes(mesh, B))
     struct = model_struct(cfg)
-    cstruct = cache_struct(cfg, B, shape.seq_len)
+    cstruct = cache_struct(cfg, B, shape.seq_len, tp_layout=mesh is not None)
     pspec = cspec = None
     if mesh is not None:
         pspec = param_pspecs(struct, cfg, mesh, fsdp=fsdp,

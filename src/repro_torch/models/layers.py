@@ -217,19 +217,21 @@ def _chunked_sdpa(q, k, v, *, cfg: ModelConfig, window: int, causal: bool,
 def _attend(q, k, v, *, cfg: ModelConfig, window: int, positions,
             q_positions=None, chunked_ok: bool = True):
     """Prefill attention of q [B, Sq, H, hd] over k/v [B, S, K, hd]:
-    K3 (``attn_impl="flash"``, causal, every query row), the chunked
-    schedule (``"chunked"``, when ``chunked_ok``) or the dense reference.
-    ``q_positions`` (a rank's own query rows) defaults to ``positions``.
-
-    K3 takes whole query rows only: its causal mask starts at row 0, so
-    ``"flash"`` on a rank's own rows (qseq on a mesh) is refused, not run
-    densely (ROADMAP item 15)."""
+    K3 (``attn_impl="flash"``, causal), the chunked schedule
+    (``"chunked"``, when ``chunked_ok``) or the dense reference.
+    ``q_positions`` (a rank's own query rows, contiguous) defaults to
+    ``positions``; K3 takes their first position as its query-row offset."""
     whole = q_positions is None
     if cfg.attn_impl == "flash" and cfg.causal:
-        assert whole, ("attn_impl='flash' on a rank's own query rows "
-                       "(score_shard='qseq' on a mesh): K3 has no query-row "
-                       "offset yet (ROADMAP item 15)")
-        return kops.flash_attention(q, k, v, causal=True, window=window)
+        offset = 0
+        if not whole:
+            offset = int(q_positions[0])
+            n = q_positions.shape[0]
+            assert torch.equal(q_positions, offset + torch.arange(
+                n, dtype=q_positions.dtype, device=q_positions.device)), \
+                "K3 takes a contiguous block of query rows"
+        return kops.flash_attention(q, k, v, causal=True, window=window,
+                                    q_offset=offset)
     if cfg.attn_impl == "chunked" and chunked_ok and whole:
         return _chunked_sdpa(q, k, v, cfg=cfg, window=window,
                              causal=cfg.causal)
@@ -267,9 +269,8 @@ def _attention_tp(params, x, *, cfg: ModelConfig, kind: str, positions,
     all): each rank gathers the whole attention weights, projects q, k
     and v of its own rows only, all-gathers k and v over 'model', and
     attends densely with its rows' queries (the chunked schedule falls
-    back to dense here, as in the JAX package; K3 takes only whole rows,
-    so ``"flash"`` is refused here while the sequence is split); its
-    output rows need no combine.
+    back to dense here, as in the JAX package; K3 runs on the rank's
+    rows at their offset); its output rows need no combine.
 
     The JAX package's ``_score_constraint`` (the O(S^2) scores pinned to
     the head axis, or to the query rows for qseq) has no counterpart:

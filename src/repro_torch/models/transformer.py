@@ -105,14 +105,17 @@ def model_struct(cfg: ModelConfig):
     }
 
 
-def cache_struct(cfg: ModelConfig, batch: int, max_len: int):
-    """Decode-state structure mirroring the segment layout."""
+def cache_struct(cfg: ModelConfig, batch: int, max_len: int, *,
+                 tp_layout: bool = False):
+    """Decode-state structure mirroring the segment layout.  ``tp_layout``:
+    the RWKV-6 states laid out as a mesh keeps them
+    (:func:`~repro_torch.models.recurrent.rwkv6_state_struct`)."""
     out = []
     for seg in _segments(cfg):
         per_pos = {}
         for j, kind in enumerate(seg["pattern"]):
             if kind == RWKV:
-                per_pos[str(j)] = rwkv6_state_struct(cfg, batch)
+                per_pos[str(j)] = rwkv6_state_struct(cfg, batch, tp_layout)
             elif kind == RECURRENT:
                 per_pos[str(j)] = rglru_state_struct(cfg, batch)
             else:
@@ -224,19 +227,13 @@ def layout(params: Transformer, cfg: ModelConfig, seq_len: int):
     model's mesh (``None`` on one device): the batch split over the data
     axes ('data', or 'pod' x 'data') when ``cfg.batch_axes`` says so,
     the residual stream's sequence split over 'model' when
-    ``cfg.act_shard == "seq"`` and it divides.
-
-    The RG-LRU and RWKV-6 layers have no TP rule in the port yet, so a
-    model with them is refused on a mesh (ROADMAP item 15)."""
+    ``cfg.act_shard == "seq"`` and it divides."""
     if params.mesh is None:
         return None
     mesh = params.mesh
     assert tuple(mesh.mesh_dim_names) in (("data", "model"),
                                           ("pod", "data", "model")), \
         mesh.mesh_dim_names
-    assert not {RECURRENT, RWKV} & set(cfg.kinds), (
-        f"{cfg.name}: RG-LRU and RWKV-6 layers do not run on a mesh yet "
-        "(ROADMAP item 15)")
     tp = mesh["model"].size()
     return Layout(mesh, batch=bool(cfg.batch_axes),
                   seq=(cfg.act_shard == "seq" and seq_len > 1
@@ -282,29 +279,29 @@ def _apply_layer(lp, x, *, cfg: ModelConfig, kind: str, is_moe: bool,
                  positions, cache=None, cache_pos=None, lay=None):
     """One residual block.  Returns (x, new_cache, aux).
 
-    On a mesh the attention, MLP and MoE blocks are tensor-parallel and
-    return their output in the residual layout (the JAX package's
-    ``shard_act`` pins on the sublayer outputs and on the sum are the
-    combines inside them; ``cfg.tp_impl`` "shard_map" is the same path,
-    see :mod:`.shardmap_tp`).  The RG-LRU and RWKV-6 layers run on one
-    device only (:func:`layout`)."""
+    On a mesh every block is tensor-parallel and returns its output in the
+    residual layout (the JAX package's ``shard_act`` pins on the sublayer
+    outputs and on the sum are the combines inside them; ``cfg.tp_impl``
+    "shard_map" is the same path, see :mod:`.shardmap_tp`); the RG-LRU and
+    RWKV-6 states are the rank's channels."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(lp.ln1, x, cfg.norm_eps, lay)
     if kind == RWKV:
         out, tm_state = rwkv6_time_mix(
             lp.tm, h, cfg=cfg,
             state=None if cache is None else {"shift": cache["tm_shift"],
-                                              "wkv": cache["wkv"]})
+                                              "wkv": cache["wkv"]}, lay=lay)
         x = x + out
-        h2 = rmsnorm(lp.ln2, x, cfg.norm_eps)
+        h2 = rmsnorm(lp.ln2, x, cfg.norm_eps, lay)
         out2, cm_state = rwkv6_channel_mix(
             lp.cm, h2,
-            state=None if cache is None else {"shift": cache["cm_shift"]})
+            state=None if cache is None else {"shift": cache["cm_shift"]},
+            lay=lay)
         return x + out2, {"tm_shift": tm_state["shift"],
                           "wkv": tm_state["wkv"],
                           "cm_shift": cm_state["shift"]}, aux
     if kind == RECURRENT:
-        out, new_cache = rglru(lp.rglru, h, cfg=cfg, state=cache)
+        out, new_cache = rglru(lp.rglru, h, cfg=cfg, state=cache, lay=lay)
     else:
         out, new_cache = attention(lp.attn, h, cfg=cfg, kind=kind,
                                    positions=positions, kv_cache=cache,
@@ -424,7 +421,9 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
     DTensors: logits [B, S, padded vocab] split on the batch over 'data'
     and on the vocab over 'model' (when the rules split it); attention
     caches [L, B, S, K, hd] on the batch and on kv heads or head_dim as
-    the kv pin leaves them; recurrent states on the batch.
+    the kv pin leaves them; recurrent states on the batch and on their
+    channels over 'model', the RWKV-6 ones laid out as
+    ``cache_struct(tp_layout=True)`` lays them out.
     """
     lay = layout(params, cfg, _seq_len(cfg, batch))
     logits, aux, caches = _forward(params, cfg, batch, lay, return_cache)
@@ -434,10 +433,21 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
         "batch": 0, "model": [(2, cfg.padded_vocab)]})
     if caches is not None:
         caches = [{j: {name: _as_dtensor(t, lay, cfg, {
-            "batch": 1, "model": [(3, cfg.n_kv_heads), (4, cfg.hd)]
-            if name in ("k", "v") else []}) for name, t in c.items()}
+            "batch": 1, "model": _cache_model_dims(name, cfg)})
+            for name, t in c.items()}
             for j, c in seg.items()} for seg in caches]
     return logits, aux, caches
+
+
+def _cache_model_dims(name: str, cfg: ModelConfig) -> list:
+    """The (dim, whole size) pairs of a stacked cache leaf [L, B, ...] that
+    'model' may split: kv heads or head_dim of k / v; the channels of the
+    RG-LRU and RWKV-6 states."""
+    if name in ("k", "v"):
+        return [(3, cfg.n_kv_heads), (4, cfg.hd)]
+    w = cfg.lru_width or cfg.d_model
+    return {"conv": [(3, w)], "h": [(2, w)], "tm_shift": [(3, cfg.d_model)],
+            "cm_shift": [(3, cfg.d_model)], "wkv": [(3, cfg.d_model)]}[name]
 
 
 def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict):
@@ -469,7 +479,10 @@ def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict):
     ce = comm.all_reduce(comm.all_reduce(ce_share.detach(), lay.data),
                          lay.model)
     total = ce + 0.01 * aux.detach()
-    return share + (total - share).detach(), {"ce": ce, "aux": aux.detach()}
+    # the value is total on every rank bit for bit (share - share is 0
+    # exactly; share + (total - share) rounds by share, a rank's own), the
+    # gradient that of this rank's share
+    return share - share.detach() + total, {"ce": ce, "aux": aux.detach()}
 
 
 # ---------------------------------------------------------------------------
@@ -489,9 +502,10 @@ def decode_step(params: Transformer, cfg: ModelConfig, caches, tokens,
 
     On a mesh ``tokens`` are this rank's batch rows (every row when the
     batch is not split) and ``caches`` DTensors laid out by
-    ``cache_pspecs``: the batch over the data axes, or (batch 1) the
-    positions over 'data'; kv heads or head_dim over 'model'
-    (:func:`~repro_torch.models.layers._decode_tp`).  A MoE layer routes
+    ``cache_pspecs`` over ``cache_struct(tp_layout=True)``: the batch over
+    the data axes, or (batch 1) the positions over 'data'; kv heads or
+    head_dim over 'model' (:func:`~repro_torch.models.layers._decode_tp`);
+    the recurrent states' channels over 'model'.  A MoE layer routes
     this rank's rows as one group, so its capacity is that of the rank's
     rows.  The logits come back as a DTensor, [B, 1, padded vocab], as
     :func:`forward`'s.

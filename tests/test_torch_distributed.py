@@ -14,14 +14,24 @@ spawns few, against the port on one rank and the JAX package.
   ``mlp_tp`` and ``o_proj_tp`` against ``mlp`` and the einsum;
   ``compressed_allreduce`` against the reference's on a 4-device host
   mesh; a checkpoint saved at (2, 2); gemma3's chunked attention under a
-  forced ``score_shard="qseq"`` falling back to the dense path.
+  forced ``score_shard="qseq"`` falling back to the dense path; smoke
+  rwkv6-3b, whose 4 heads divide the model axis (below).
 - 2 ranks: that checkpoint restored onto ``survivors_mesh``, and read by
   ``repro.checkpoint.restore_checkpoint``; ``train(model_axis=2)`` with
   int8 compression against the one-rank ``train()``.
 - (1, 8), 8 ranks: smoke gemma3-4b at a model axis its 4 heads do not
-  divide (qseq), dense and chunked, against the one-rank port; the
-  refusals of ``attn_impl="flash"`` on a rank's query rows and of the
-  RG-LRU and RWKV-6 layers on a mesh.
+  divide (qseq), dense, chunked and through K3's twin on each rank's own
+  query rows, against the one-rank port and the reference; smoke
+  recurrentgemma-2b (4 heads over 8: qseq; its LRU width 8 channels a
+  rank) and rwkv6-3b (4 heads of 16 channels over 8: half a head a
+  rank); K4's and K5's twins on a rank's share, and the RG-LRU and
+  RWKV-6 layers with ``use_kernel=True`` on the mesh.
+- The recurrent archs, at (1, 8) and rwkv6-3b also at (2, 2): the prefill
+  against the one-rank port (logits and last caches, the RWKV-6 state
+  value-major) and the reference's ``forward``; two ``make_step`` steps
+  against the one-rank port's and the reference's; four steps of
+  ``decode_cell`` from zeroed caches against the one-rank
+  ``decode_step``.
 
 Tolerances, all f32: the sharded step's losses, grad norms and lrs within
 1e-5 relative and its parameters within 1e-6 absolute of the one-rank
@@ -30,7 +40,14 @@ one-rank step (TP and FSDP sum in other orders); prefill logits
 within 1e-5 of the one-rank port and 2e-4 of the reference (as
 ``tests/test_torch_models.py``); ``mlp_tp`` / ``o_proj_tp`` 1e-4 (as
 ``tests/test_perf_modes.py``); ``compressed_allreduce`` 1e-6 of the
-reference's and relative error < 0.05 (``tests/test_distributed.py``).
+reference's and relative error < 0.05 (``tests/test_distributed.py``);
+the recurrent archs' prefill caches and decode logits within 1e-5 of the
+one-rank port's; K4's and K5's twins on a rank's share bit-equal to the
+whole width's channels (no sum is reordered: each channel's recurrence,
+and each value channel's, is its own), and the layers with
+``use_kernel=True`` on the mesh within 1e-5 of one rank (the row-parallel
+products and the LoRA and ln_x combines sum their partial sums over
+'model' in another order).
 The ranks' functions are in ``tests/torch_dist_workers.py``.  The
 machine with the card has no JAX: there this module skips as a whole."""
 import functools
@@ -90,7 +107,7 @@ def _batches(arch, steps=STEPS, batch=B, seq=S):
 @pytest.fixture(scope="module")
 def world4(tmp_path_factory):
     ck = str(tmp_path_factory.mktemp("ck22"))
-    arches = ("llama3.2-1b", "deepseek-moe-16b", "gemma3-4b")
+    arches = ("llama3.2-1b", "deepseek-moe-16b", "gemma3-4b", "rwkv6-3b")
     ref = {a: _np_params(a) for a in arches}
     batches = {a: _batches(a) for a in arches}
     trees = {a: ref[a][2] for a in arches}
@@ -244,14 +261,18 @@ def test_restore_onto_survivors_and_train_on_a_model_axis(world4, tmp_path):
 
 @pytest.fixture(scope="module")
 def world8():
-    cfg, jp, tree = _np_params("gemma3-4b")
+    arches = ("gemma3-4b", "recurrentgemma-2b", "rwkv6-3b")
+    ref = {a: _np_params(a) for a in arches}
+    cfg, jp, tree = ref["gemma3-4b"]
     toks = np.asarray(jax_batch(cfg, 2, 24)["tokens"])
-    out = tmesh.spawn_world(workers.world8, 8, tree, toks, device="cpu")[0]
-    return out, cfg, jp, tree, toks
+    batches = {a: _batches(a) for a in arches[1:]}
+    out = tmesh.spawn_world(workers.world8, 8, {a: ref[a][2] for a in arches},
+                            toks, batches, device="cpu")[0]
+    return out, cfg, jp, tree, toks, ref, batches
 
 
 def test_qseq_prefill_where_heads_do_not_divide(world8):
-    out, cfg, jp, tree, toks = world8
+    out, cfg, jp, tree, toks = world8[:5]
     assert (out["score_shard"], out["kv_shard"]) == ("qseq", "hd")
     # head_dim carries the model axis where the heads cannot
     assert out["wq"] == "(Shard(dim=1), Shard(dim=3))"
@@ -268,11 +289,118 @@ def test_qseq_prefill_where_heads_do_not_divide(world8):
                                rtol=0, atol=2e-4)
 
 
-@pytest.mark.parametrize("what", ["flash qseq", "recurrentgemma-2b",
-                                  "rwkv6-3b"])
-def test_mesh_refuses_what_it_cannot_run(world8, what):
-    """K3 on a rank's own query rows (its causal mask starts at row 0) and
-    the RG-LRU / RWKV-6 layers (no TP rule) are refused on a mesh, naming
-    the open item, rather than run densely or whole on every rank."""
-    msg = world8[0]["refused"][what]
-    assert msg is not None and "ROADMAP item 15" in msg, msg
+def test_flash_on_each_ranks_query_rows(world8):
+    """K3 (its twin on the CPU) on each rank's own query rows at their
+    offset, under qseq: the fixture's dense qseq prefill and the
+    reference's logits."""
+    out, cfg, jp, tree, toks = world8[:5]
+    np.testing.assert_allclose(out["flash"], out["dense"], rtol=0, atol=1e-5)
+    jl = np.asarray(jmodels.forward(jp, cfg, {"tokens": jnp.asarray(toks)})[0])
+    np.testing.assert_allclose(out["flash"][..., :cfg.vocab_size], jl,
+                               rtol=0, atol=2e-4)
+
+
+# (arch, mesh): recurrentgemma-2b's 4 heads and 64 LRU channels over 8;
+# rwkv6-3b's 4 heads of 16 over 8 (half a head a rank) and over 2
+RECURRENT = [("recurrentgemma-2b", "1x8"), ("rwkv6-3b", "1x8"),
+             ("rwkv6-3b", "2x2")]
+
+
+def _recurrent(request, arch, mesh):
+    """(the rank 0 record of ``arch`` on ``mesh``, (cfg, JAX params, numpy
+    leaves), the batches)."""
+    if mesh == "2x2":
+        out, ref, batches, _ = request.getfixturevalue("world4")
+    else:
+        out, *_, ref, batches = request.getfixturevalue("world8")
+    return out[arch], ref[arch], batches[arch]
+
+
+def _value_major(wkv):
+    """A one-rank RWKV-6 state [.., H, hd, hd] value-major, [.., hd, d]."""
+    *lead, H, hd, _ = wkv.shape
+    return np.swapaxes(wkv, -3, -2).reshape(*lead, hd, H * hd)
+
+
+@pytest.mark.parametrize("arch,mesh", RECURRENT)
+def test_recurrent_prefill_on_a_mesh(request, arch, mesh):
+    run, (cfg, jp, tree), batches = _recurrent(request, arch, mesh)
+    tcfg = tconfigs.get_config(arch, smoke=True)
+    toks = batches[0]["tokens"]
+    from repro_torch.launch.steps import prefill
+    want, caches = prefill(params_from_jax(tree, tcfg, device="cpu"), tcfg,
+                           {"tokens": torch.from_numpy(toks)})
+    got = run["prefill"][..., :cfg.vocab_size]
+    np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=1e-5)
+    jl = np.asarray(jmodels.forward(jp, cfg, {"tokens": jnp.asarray(toks)})[0])
+    np.testing.assert_allclose(got, jl, rtol=0, atol=2e-4)
+    if mesh == "1x8":
+        assert run["score_shard"] == "qseq"
+    for name, t in caches[-1]["0"].items():
+        w = t.numpy()
+        if name == "wkv":
+            w = _value_major(w)
+        np.testing.assert_allclose(run["caches"][name], w, rtol=0,
+                                   atol=1e-5, err_msg=name)
+        # the states' channels (the last dimension) split over 'model'
+        dim = run["caches"][name].ndim - 1
+        assert run["cache placements"][name].endswith(
+            f"Shard(dim={dim}))"), (name, run["cache placements"])
+
+
+@pytest.mark.parametrize("arch,mesh", RECURRENT)
+def test_recurrent_train_steps_on_a_mesh(request, arch, mesh):
+    run, (cfg, jp, tree), batches = _recurrent(request, arch, mesh)
+    tcfg = tconfigs.get_config(arch, smoke=True)
+    model = params_from_jax(tree, tcfg, device="cpu")
+    model.trainable()
+    tst, jst = adamw_init(model.tree), jadamw_init(jp)
+    tstep = ttrain.make_step(tcfg, AdamWConfig(lr=LR), total_steps=2)
+    jstep = jtrain.make_step(cfg, JAdamWConfig(lr=LR), total_steps=2)
+    for i, b in enumerate(batches[:2]):
+        model, tst, _, tm = tstep(model, tst, None,
+                                  {k: torch.from_numpy(v)
+                                   for k, v in b.items()})
+        jp, jst, _, jm = jstep(jp, jst, None,
+                               {k: jnp.asarray(v) for k, v in b.items()})
+        np.testing.assert_allclose(
+            run["rows"][i], [tm[k].item() for k in ("loss", "grad_norm",
+                                                    "lr")], rtol=RTOL)
+        np.testing.assert_allclose(
+            run["rows"][i], [float(jm[k]) for k in ("loss", "grad_norm",
+                                                    "lr")], rtol=RTOL)
+    assert run["rows"][1][2] > 0          # the second step moves the weights
+    for a, w, j in zip(run["params"], tree_leaves(model.tree),
+                       jax.tree_util.tree_leaves(jp), strict=True):
+        np.testing.assert_allclose(a, w.numpy(), rtol=0, atol=ATOL)
+        np.testing.assert_allclose(a, np.asarray(j), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("arch,mesh", RECURRENT)
+def test_recurrent_decode_on_a_mesh(request, arch, mesh):
+    run, (cfg, jp, tree), batches = _recurrent(request, arch, mesh)
+    tcfg = tconfigs.get_config(arch, smoke=True)
+    from repro_torch import models as tmodels
+    model = params_from_jax(tree, tcfg, device="cpu")
+    toks = torch.from_numpy(batches[0]["tokens"])
+    caches = tmodels.init_params(tmodels.cache_struct(
+        tcfg, toks.shape[0], workers.DECODE_LEN), None, device="cpu")
+    for pos in range(workers.DECODE_STEPS):
+        with torch.inference_mode():
+            want, caches = tmodels.decode_step(model, tcfg, caches,
+                                               toks[:, pos:pos + 1], pos)
+        np.testing.assert_allclose(run["decode"][pos][..., :cfg.vocab_size],
+                                   want.numpy(), rtol=0, atol=1e-5)
+
+
+def test_k4_k5_on_a_ranks_share(world8):
+    """K4's and K5's twins on a rank's channels (K5: the heads they touch,
+    v zero outside them) equal the whole width's, bit for bit; the RG-LRU
+    and RWKV-6 layers with ``use_kernel=True`` on the mesh equal the
+    one-rank layer within 1e-5."""
+    ks = world8[0]["kernel shares"]
+    assert ks["k4 share bit-equal"] and ks["k5 share bit-equal"]
+    for arch in ("recurrentgemma-2b", "rwkv6-3b"):
+        assert ks[arch]["out_err"] <= 1e-5 * max(1.0, ks[arch]["out_max"]), \
+            ks[arch]
+        assert ks[arch]["state_err"] <= 1e-5, ks[arch]

@@ -3,15 +3,23 @@
 
 - ``model_flops`` equal to the reference's for all 10 archs x 4 shapes.
 - Rank 0's FLOPs at (16, 16) for llama3.2-1b ``train_4k`` (remat
-  "full") and ``prefill_32k`` and minitron-4b ``train_4k`` (its heads do
-  not divide the model axis: qseq) within 2% of the reference's
-  per-device ``analyze_compiled`` FLOPs, each side in a subprocess (the
-  port in a world of 256 fake ranks on the meta device, the reference
-  compiled on 256 host devices).  The port's count is the reference's
-  less its one-hot cross-entropy contraction (the port gathers the gold
-  logit): 0.002% or less.
+  "full") and ``prefill_32k``, minitron-4b ``train_4k`` (its heads do
+  not divide the model axis: qseq), and the recurrent archs' ``train_4k``
+  (recurrentgemma-2b's RG-LRU width and rwkv6-3b's 40 heads split over
+  'model', 2.5 heads a rank) within 2% of the reference's per-device
+  ``analyze_compiled`` FLOPs, each side in a subprocess (the port in a
+  world of 256 fake ranks on the meta device, the reference compiled on
+  256 host devices).  The port's count is the reference's less its
+  one-hot cross-entropy contraction (the port gathers the gold logit):
+  0.002% or less for the transformers.
+- The recurrent archs' other cells run too (prefill_32k, decode_32k,
+  long_500k): the dry run refuses no cell.
 - A (2, 16, 16) cell runs with the pod axis: the batch over pod x data,
-  so a rank's FLOPs are half those at (16, 16).
+  so a rank's FLOPs are half those at (16, 16); recurrentgemma-2b's
+  ``train_4k`` runs there.
+- The RWKV-6 token loop on the meta device runs one step counted S times
+  (``hlo_static.trip_count``): one layer's forward FLOPs and bytes, and
+  its forward and backward FLOPs, equal the whole loop's at S 64.
 - A collective over a group of one rank (the 'data' axis of a (1, 2)
   world) counts nothing; over two ranks it counts by the reference's
   byte rule.
@@ -41,7 +49,12 @@ from repro_torch.launch.hlo_analysis import model_flops
 
 ROOT = Path(__file__).resolve().parents[1]
 CELLS = [("llama3.2-1b", "train_4k"), ("llama3.2-1b", "prefill_32k"),
-         ("minitron-4b", "train_4k")]
+         ("minitron-4b", "train_4k"), ("recurrentgemma-2b", "train_4k"),
+         ("rwkv6-3b", "train_4k")]
+# the recurrent archs' other cells, run by the port alone
+RECURRENT_CELLS = [(a, s) for a in ("recurrentgemma-2b", "rwkv6-3b")
+                   for s in ("prefill_32k", "decode_32k", "long_500k")]
+MULTI_CELLS = [("llama3.2-1b", "train_4k"), ("recurrentgemma-2b", "train_4k")]
 RESULTS = [ROOT / "results" / "dryrun.json", ROOT / "results" / "perf.json"]
 
 _PORT = """
@@ -117,7 +130,8 @@ def runs():
     before = [p.exists() for p in RESULTS]
     procs = {"ref": _start(_REFERENCE, CELLS=CELLS),
              "single": _start(_PORT, CELLS=CELLS, MULTI=False),
-             "multi": _start(_PORT, CELLS=CELLS[:1], MULTI=True)}
+             "recurrent": _start(_PORT, CELLS=RECURRENT_CELLS, MULTI=False),
+             "multi": _start(_PORT, CELLS=MULTI_CELLS, MULTI=True)}
     out = {k: _json(p) for k, p in procs.items()}
     out["results_before"] = before
     return out
@@ -150,8 +164,16 @@ def test_rank_flops_match_reference(runs, cell):
     assert ro["coll_by_kind"]["all-gather"] > 0
 
 
-def test_multipod_cell_runs_with_the_pod_axis(runs):
-    key = "llama3.2-1b:train_4k"
+@pytest.mark.parametrize("cell", [f"{a}:{s}" for a, s in RECURRENT_CELLS])
+def test_recurrent_cells_run_on_the_mesh(runs, cell):
+    rec = runs["recurrent"][cell]
+    assert rec["status"] == "ok", rec
+    assert rec["roofline"]["flops"] > 0
+    assert rec["memory"]["peak_bytes"] >= rec["memory"]["argument_bytes"] > 0
+
+
+@pytest.mark.parametrize("key", [f"{a}:{s}" for a, s in MULTI_CELLS])
+def test_multipod_cell_runs_with_the_pod_axis(runs, key):
     multi, single = runs["multi"][key], runs["single"][key]
     assert multi["status"] == "ok" and multi["mesh"] == "multi"
     # the batch over pod x data: half the rows a rank, half the FLOPs
@@ -162,6 +184,39 @@ def test_multipod_cell_runs_with_the_pod_axis(runs):
     # over it, so a rank all-reduces more than at (16, 16)
     assert (multi["roofline"]["coll_count_by_kind"]["all-reduce"]
             > single["roofline"]["coll_count_by_kind"]["all-reduce"])
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_meta_token_loop_counts_every_step(monkeypatch, backward):
+    """One rwkv6-3b time-mix layer at S 64 on the meta device: with the
+    token loop run once and counted 64 times, the forward's FLOPs and op
+    bytes and the backward's FLOPs equal those of the whole loop (the
+    backward's bytes do not: the loop's autograd also writes a
+    whole-sequence zero gradient for each step's slice)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.launch.hlo_static import CostMode
+    from repro_torch.launch.steps import abstract
+    from repro_torch.models import model_struct, recurrent
+    from repro_torch.models.base import Params
+    cfg = tconfigs.get_config("rwkv6-3b")
+    tm = abstract(model_struct(cfg)["segments"][0]["0"]["tm"])
+    counts = {}
+    for scaled in (True, False):
+        if not scaled:        # the whole loop, as on a device with values
+            monkeypatch.setattr(ref._MetaScan, "apply", ref._token_loop)
+        p = Params({k: t[0].requires_grad_(backward) for k, t in tm.items()})
+        x = torch.empty(2, 64, cfg.d_model, device="meta",
+                        requires_grad=backward)
+        with CostMode() as m:
+            out, state = recurrent.rwkv6_time_mix(p, x, cfg=cfg)
+            fwd = (m.cost.flops, m.cost.hbm_bytes)
+            if backward:
+                (out.sum() + state["wkv"].sum()).backward()
+        assert out.shape == x.shape and state["wkv"].shape == (2, 40, 64, 64)
+        counts[scaled] = fwd, m.cost.flops
+    assert counts[True] == counts[False], counts
 
 
 def test_collectives_over_a_group_of_one_count_nothing():

@@ -107,6 +107,36 @@ def test_cuda_kernel_matches_plain(cuda, B, S, H, Kh, hd, causal, window,
                                want.float().cpu().numpy(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("S,rows,H,Kh,hd,window,dtype,tol", [
+    # a rank's rows of a split sequence: on the q tile, off it, to the end
+    (512, (128, 256), 10, 1, 256, 512, torch.bfloat16, 2e-2),
+    (512, (100, 300), 8, 2, 64, 0, torch.bfloat16, 2e-2),
+    (512, (333, 512), 8, 2, 128, 96, torch.bfloat16, 2e-2),
+    (512, (100, 300), 8, 2, 64, 0, torch.float32, 2e-5),
+    (400, (37, 211), 4, 4, 320, 64, torch.float32, 2e-5),
+    (256, (9, 100), 4, 2, 32, 0, torch.bfloat16, 2e-2),
+])
+def test_cuda_kernel_on_a_ranks_query_rows(cuda, S, rows, H, Kh, hd, window,
+                                           dtype, tol):
+    """Rows [a, b) of S at ``q_offset=a`` over every key: the twin's
+    output at that offset, and the whole-row kernel's rows."""
+    q, k, v = _qkv(S + rows[0], 2, S, H, Kh, hd, dtype, cuda)
+    a, b = rows
+    before = ops.flash_attention.launches
+    out = ops.flash_attention(q[:, a:b], k, v, causal=True, window=window,
+                              q_offset=a)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert out.shape == q[:, a:b].shape
+    bq, bk = fa.tiles(b - a, S, hd, dtype=dtype)
+    want = fa.flash_attention_plain(q[:, a:b], k, v, causal=True,
+                                    window=window, bq=bq, bk=bk, q_offset=a)
+    whole = ops.flash_attention(q, k, v, causal=True, window=window)[:, a:b]
+    for w in (want, whole):
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("bq,bk", [(16, 16), (37, 24), (64, 64)])
 def test_cuda_kernel_takes_smaller_tiles(cuda, bq, bk):
     """A tile under the kernel's own still walks the plain twin's schedule."""

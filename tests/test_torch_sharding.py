@@ -140,6 +140,60 @@ def test_batch_and_cache_specs_and_glue_equal_the_reference(arch, mesh):
     assert tsteps._auto_kv_shard(tcfg, tm) == jsteps._auto_kv_shard(jcfg, jm)
 
 
+def _named(tree, path=()):
+    """(path, leaf) of a tree of dicts and lists, in tree order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _named(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, PartitionSpec):
+        return [x for i, t in enumerate(tree) for x in _named(t, path + (i,))]
+    return [(path, tree)]
+
+
+# the dimension of each recurrent leaf (stacked: after 'layers') that the
+# tensor-parallel forms in models/recurrent.py take split over 'model'
+RECURRENT_MODEL_DIMS = {
+    "rglru": {"in_x": 2, "in_y": 2, "conv_w": 2, "conv_b": 1, "gate_a": 1,
+              "gate_i": 1, "log_lambda": 1, "out": 1},
+    "tm": {"lora_a": 2, "lora_b": 2, "wr": 2, "wk": 2, "wv": 2, "wg": 2,
+           "wo": 1, "decay_a": 2, "decay_b": 1},
+    "cm": {"wk": 2, "wv": 1, "wr": 2},
+}
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b"])
+def test_recurrent_leaves_are_split_as_their_mesh_forms_take_them(arch,
+                                                                  mesh):
+    """The RG-LRU and RWKV-6 leaves' specs, leaf by leaf, equal
+    ``repro.sharding``'s, and put 'model' on the dimension the layers'
+    tensor-parallel forms read as split; the decode cache on a mesh
+    (``cache_struct(tp_layout=True)``, the RWKV-6 wkv state value-major)
+    splits every recurrent state's channels over 'model'."""
+    jcfg, tcfg = _cfgs(arch)
+    jm, tm = _meshes(mesh)
+    got = _named(tsharding.param_pspecs(tmodels.model_struct(tcfg), tcfg, tm))
+    want = _jspecs(jsharding.param_pspecs(jmodels.model_struct(jcfg), jcfg,
+                                          jm))
+    seen = 0
+    for (path, spec), ref in zip(got, want, strict=True):
+        block = next((b for b in RECURRENT_MODEL_DIMS if b in path), None)
+        if block is None:
+            continue
+        assert _norm(spec) == ref, (path, spec, ref)
+        dim = RECURRENT_MODEL_DIMS[block].get(path[-1])
+        if dim is not None:
+            assert spec[dim] == "model", (path, spec)
+            seen += 1
+    # rwkv6-3b: one stacked segment; recurrentgemma-2b: two RG-LRU
+    # positions in each of its two segments
+    assert seen == {"rwkv6-3b": 12, "recurrentgemma-2b": 4 * 8}[arch]
+    cache = _named(tsharding.cache_pspecs(
+        tmodels.cache_struct(tcfg, 32, 64, tp_layout=True), tcfg, tm, 32))
+    for path, spec in cache:
+        if path[-1] in ("conv", "h", "tm_shift", "wkv", "cm_shift"):
+            assert spec[-1] == "model", (path, spec)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_config_on_a_mesh_is_prefill_cells(arch):
     """The knobs ``prefill_cell`` derives from its mesh (the reference's

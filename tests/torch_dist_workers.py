@@ -128,6 +128,10 @@ def world4(rank, world, trees, batches, ck):
         4099).astype(np.float32))
     out["compressed"] = compressed_allreduce(xc, flat, "data").numpy()
 
+    # smoke rwkv6-3b at (2, 2): its 4 heads divide the model axis
+    out["rwkv6-3b"] = recurrent_runs(mesh, "rwkv6-3b", trees["rwkv6-3b"],
+                                     batches["rwkv6-3b"])
+
     # the (2, 2) checkpoint of the initial llama parameters
     save_checkpoint(ck, 1, sharded(cfg, mesh, trees["llama3.2-1b"]).tree,
                     process_index=rank, process_count=world)
@@ -161,7 +165,11 @@ def world2(rank, world, ck, tree, ck_train):
     return out if rank == 0 else None
 
 
-def world8(rank, world, tree, toks):
+def world8(rank, world, trees, toks, batches):
+    """(1, 8): smoke gemma3-4b's 4 heads do not divide the model axis
+    (qseq): its prefill dense, chunked and through K3's twin on each
+    rank's own query rows; the recurrent archs (:func:`recurrent_runs`)
+    and the K4 / K5 layers on a rank's share (:func:`kernel_shares`)."""
     torch.set_num_threads(1)
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import prefill, prefill_config
@@ -170,38 +178,160 @@ def world8(rank, world, tree, toks):
     mesh = make_host_mesh(8, "cpu")
     cfg = prefill_config("gemma3-4b", smoke=True, mesh=mesh, batch=2
                          ).replace(attn_dtype="f32")
-    model = sharded(cfg, mesh, tree)
+    model = sharded(cfg, mesh, trees["gemma3-4b"])
     mine = local_batch({"tokens": torch.from_numpy(toks)}, cfg, mesh)
     dense, caches = prefill(model, cfg, mine)
     chunked = prefill(model, cfg.replace(attn_impl="chunked"), mine)[0]
+    flash = prefill(model, cfg.replace(attn_impl="flash"), mine)[0]
     out = {"score_shard": cfg.score_shard, "kv_shard": cfg.kv_shard,
            "dense": full_tensor(dense).numpy(),
            "chunked": full_tensor(chunked).numpy(),
+           "flash": full_tensor(flash).numpy(),
            "wq": str(model.tree["segments"][0]["0"]["attn"]["wq"].placements),
            "k": str(caches[0]["0"]["k"].placements)}
-    # what the mesh refuses: K3 on a rank's own query rows, and the
-    # RG-LRU and RWKV-6 layers (every rank raises at the same point)
-    out["refused"] = {"flash qseq": _refusal(
-        lambda: prefill(model, cfg.replace(attn_impl="flash"), mine))}
     for arch in ("recurrentgemma-2b", "rwkv6-3b"):
-        from repro_torch import models as tmodels
-        from repro_torch.sharding import param_pspecs
-        rcfg = prefill_config(arch, smoke=True, mesh=mesh, batch=2)
-        struct = tmodels.model_struct(rcfg)
-        rm = tmodels.Transformer(rcfg, tmodels.init_params(
-            struct, torch.Generator().manual_seed(0), device="cpu",
-            mesh=mesh, specs=param_pspecs(struct, rcfg, mesh)))
-        out["refused"][arch] = _refusal(lambda: prefill(rm, rcfg, mine))
+        out[arch] = recurrent_runs(mesh, arch, trees[arch], batches[arch])
+    out["kernel shares"] = kernel_shares(mesh, trees)
     return out if rank == 0 else None
 
 
-def _refusal(fn) -> str | None:
-    """The message of the AssertionError ``fn`` raises, None if it runs."""
-    try:
-        fn()
-    except AssertionError as e:
-        return str(e)
-    return None
+# decode steps of the recurrent runs, from zeroed caches of this length
+DECODE_STEPS, DECODE_LEN = 4, 8
+
+
+def recurrent_runs(mesh, arch, tree, batches):
+    """Smoke ``arch`` on ``mesh`` from the f32 leaves ``tree``: the prefill
+    of ``batches[0]``'s tokens (f32 scores; logits and last caches
+    gathered, the caches' placements), two ``make_step`` steps on
+    ``batches[:2]`` (rows of loss, grad norm and lr; the parameters
+    after them, gathered) and ``DECODE_STEPS`` steps of ``decode_cell``
+    over the first tokens of ``batches[0]`` from zeroed caches (the
+    logits of each step, gathered)."""
+    from repro_torch.configs import Shape
+    from repro_torch.launch.steps import (decode_cell, mesh_config, prefill,
+                                          prefill_config)
+    from repro_torch.models.base import tree_unflatten
+    from repro_torch.runtime import full_tensor
+    from repro_torch.sharding import distribute, local_batch
+    toks = torch.from_numpy(batches[0]["tokens"])
+    out = {}
+    pcfg = prefill_config(arch, smoke=True, mesh=mesh, batch=B
+                          ).replace(attn_dtype="f32")
+    logits, caches = prefill(sharded(pcfg, mesh, tree), pcfg,
+                             local_batch({"tokens": toks}, pcfg, mesh))
+    out["prefill"] = full_tensor(logits).numpy()
+    out["caches"] = {name: full_tensor(t).numpy()
+                     for name, t in caches[-1]["0"].items()}
+    out["cache placements"] = {name: str(t.placements)
+                               for name, t in caches[-1]["0"].items()}
+    out["score_shard"] = pcfg.score_shard
+
+    cfg = mesh_config(tconfigs.get_config(arch, smoke=True), mesh, B)
+    model = sharded(cfg, mesh, tree)
+    opt = adamw_init(model.tree)
+    step = ttrain.make_step(cfg, AdamWConfig(lr=LR), total_steps=2)
+    rows = []
+    for b in batches[:2]:
+        hb = local_batch({k: torch.from_numpy(v) for k, v in b.items()},
+                         cfg, mesh)
+        model, opt, _, m = step(model, opt, None, hb)
+        rows.append([m[k].item() for k in ("loss", "grad_norm", "lr")])
+    out["rows"], out["params"] = rows, full(model.tree)
+
+    cell = decode_cell(tconfigs.get_config(arch, smoke=True),
+                       Shape("decode", DECODE_LEN, B, "decode"), mesh)
+    pspec, cspec = cell.in_shardings[:2]
+    params = tree_unflatten(cell.args[0], [
+        distribute(torch.from_numpy(np.array(a)), mesh, s)
+        for a, s in zip(tree_leaves(tree), tree_leaves(pspec), strict=True)])
+    dcaches = [tree_unflatten(c, [
+        distribute(torch.zeros(t.shape), mesh, sp)
+        for t, sp in zip(tree_leaves(c), tree_leaves(cs))])
+        for c, cs in zip(cell.args[1], cspec)]
+    steps = []
+    for pos in range(DECODE_STEPS):
+        logits, dcaches = cell.fn(params, dcaches, toks[:, pos:pos + 1], pos)
+        steps.append(full_tensor(logits).numpy())
+    out["decode"] = np.stack(steps)
+    return out
+
+
+def kernel_shares(mesh, trees):
+    """K4's and K5's twins on a rank's share against the whole width, and
+    the RG-LRU and RWKV-6 layers with ``use_kernel=True`` on the mesh
+    against the one-rank layer (f32, smoke layer 0's weights; gathered)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import recurrent
+    from repro_torch.models.layers import embed
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.layout import Layout
+    lay = Layout(mesh, batch=False, seq=True)
+    tp, r = lay.tp, lay.tp_rank
+    g = torch.Generator().manual_seed(1)
+    out = {}
+    a = torch.rand(2, 24, 64, generator=g) * 0.5 + 0.5
+    b = torch.randn(2, 24, 64, generator=g)
+    c = 64 // tp
+    mine = ops.rglru_scan(a[..., r * c:(r + 1) * c], b[..., r * c:(r + 1) * c])
+    whole = ops.rglru_scan(a, b)[..., r * c:(r + 1) * c]
+    out["k4 share bit-equal"] = bool(comm.all_reduce(torch.tensor(
+        float(not torch.equal(mine, whole))), lay.model).item() == 0)
+    # K5 on the heads a rank's channels touch, v zero outside them
+    rk, kk, vk, wk = (torch.randn(2, 24, 4, 16, generator=g)
+                      for _ in range(4))
+    wk = torch.exp(-torch.exp(wk.clamp(-8.0, 4.0)))
+    u = torch.randn(4, 16, generator=g) * 0.1
+    c0, c1 = r * c, (r + 1) * c
+    h0, h1 = c0 // 16, -(-c1 // 16)
+    vz = torch.zeros_like(vk.reshape(2, 24, 64))
+    vz[..., c0:c1] = vk.reshape(2, 24, 64)[..., c0:c1]
+    vz = vz.reshape(2, 24, 4, 16)
+    o_mine, s_mine = ops.rwkv6_scan(rk[:, :, h0:h1], kk[:, :, h0:h1],
+                                    vz[:, :, h0:h1], wk[:, :, h0:h1],
+                                    u[h0:h1])
+    o_whole, s_whole = ops.rwkv6_scan(rk, kk, vk, wk, u)
+    o_mine = o_mine.reshape(2, 24, -1)[..., c0 - h0 * 16:c1 - h0 * 16]
+    o_whole = o_whole.reshape(2, 24, 64)[..., c0:c1]
+    s_mine = s_mine.transpose(1, 2).reshape(2, 16, -1)[
+        ..., c0 - h0 * 16:c1 - h0 * 16]
+    s_whole = s_whole.transpose(1, 2).reshape(2, 16, 64)[..., c0:c1]
+    out["k5 share bit-equal"] = bool(comm.all_reduce(torch.tensor(float(
+        not (torch.equal(o_mine, o_whole) and torch.equal(s_mine, s_whole)))),
+        lay.model).item() == 0)
+    for arch, fn, sub in (("recurrentgemma-2b", recurrent.rglru, "rglru"),
+                          ("rwkv6-3b", recurrent.rwkv6_time_mix, "tm")):
+        cfg = tconfigs.get_config(arch, smoke=True)
+        model = sharded(cfg.replace(act_shard="seq"), mesh, trees[arch])
+        one = sharded_one(cfg, trees[arch])
+        toks = torch.randint(0, cfg.vocab_size, (2, 24), generator=g)
+        x = embed(one.embed, toks, cfg)
+        lp = getattr(model.segments[0][0], "0")
+        lp1 = getattr(one.segments[0][0], "0")
+        with torch.inference_mode():
+            got, state = fn(getattr(lp, sub), comm.chunk(x, 1, lay.model),
+                            cfg=cfg, use_kernel=True, lay=lay)
+            want, want_state = fn(getattr(lp1, sub), x, cfg=cfg,
+                                  use_kernel=True)
+            got = comm.all_gather(got, 1, lay.model)
+            state = {n: comm.all_gather(t, t.dim() - 1, lay.model)
+                     for n, t in state.items()}
+        if sub == "tm":       # the one-rank wkv state, value-major
+            want_state["wkv"] = want_state["wkv"].transpose(1, 2).reshape(
+                2, 16, 64)
+        out[arch] = {"out_err": (got - want).abs().max().item(),
+                     "out_max": want.abs().max().item(),
+                     "state_err": max((state[n] - want_state[n]).abs().max()
+                                      .item() for n in want_state)}
+    return out
+
+
+def sharded_one(tcfg, np_tree):
+    """The model on one rank from whole numpy leaves."""
+    from repro_torch import models as tmodels
+    from repro_torch.models.base import tree_unflatten
+    specs = tmodels.model_struct(tcfg)
+    return tmodels.Transformer(tcfg, tree_unflatten(specs, [
+        torch.from_numpy(np.array(a)) for a in tree_leaves(np_tree)]))
 
 
 def compress_two(rank, world, xs):
