@@ -27,12 +27,13 @@ policy, two latency tables, two launches alike); and drives the port's
 main paths at full width, with random weights or data drawn from a seed:
 
 - llama3.2-1b: a bf16 prefill of 4 x 2048 tokens through K3 (hd 64);
-- recurrentgemma-2b: a bf16 prefill of 4 x 2048 through K3 (hd 256), held
+- recurrentgemma-2b: a bf16 prefill of 4 x 2048 through K3 (hd 256) and
+  K4 (its 18 RG-LRU layers take the kernel by default on the card), held
   against the reference-attention prefill, and layer 0's RG-LRU with
-  ``use_kernel=True`` through K4, held against its plain branch;
-- rwkv6-3b: a bf16 prefill of 4 x 2048 through the per-token wkv scan, held
-  against the chunked form, and layer 0's time mix with ``use_kernel=True``
-  through K5, held against the scan;
+  ``use_kernel=True`` through K4, held against ``use_kernel=False``;
+- rwkv6-3b: a bf16 prefill of 4 x 2048 through K5 (one launch a layer),
+  held in f32 against the chunked form, and layer 0's time mix with
+  ``use_kernel=True`` through K5, held against ``use_kernel=False``;
 - ``serve`` of 4 requests on each of the three models, in f32;
 - deepseek-moe-16b, whole (28 layers, 16.4 B parameters): a bf16 prefill
   of 4 x 2048 through K3 (hd 128, 16 heads, 16 kv heads), held against
@@ -134,17 +135,21 @@ main paths at full width, with random weights or data drawn from a seed:
   rank's heads and, with
   ``score_shard="qseq"``, on each rank's query rows at offsets 0 and
   1024; recurrentgemma-2b and rwkv6-3b at full width on (1, 4), cut to 3
-  and 2 layers (the prefill, layer 0 with ``use_kernel=True`` through K4
-  / K5 on a rank's share, one ``train_cell`` step), and rwkv6-3b's time
-  mix at (1, 16), a head split over two ranks, through K5; each held to
-  one rank.
+  and 2 layers (the prefill, through K4 / K5 on a rank's share once a
+  recurrent layer; layer 0 with ``use_kernel=True`` through K4 / K5; one
+  ``train_cell`` step), and rwkv6-3b's time mix at (1, 16), a head split
+  over two ranks, through K5; each held to one rank (the layers to one
+  rank's ``use_kernel=False``).
 
 Every kernel's launch count is set to 0 just before each path and read just
 after it; a path that launches a kernel another number of times than it
-should fails the run.  Then it times each kernel beside its bound, its plain
-version and, where one exists, one PyTorch call computing the same function,
-prints one JSON line of kernel numbers and, last, one JSON line naming the
-device.  Any failed phase, or no GPU, exits non-zero before that last line.
+should fails the run.  Then it times each kernel beside its bound, its
+plain version and, where one exists, one PyTorch call computing the same
+function, prints one JSON line of kernel numbers and, last, one JSON line
+naming the device.  Any failed phase, or no GPU, exits non-zero before
+that last line.  Each numbered section of :func:`main` prints its host
+wall (``[section_time]``), and the run's total (``[wall]``) comes just
+before the kernels line.
 
     python3 chip_smoke.py --k1k2-times [--src DIR]
 
@@ -174,6 +179,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+_T0 = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 
@@ -204,7 +210,7 @@ TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # another order.  These are the JAX package's own kernel tolerances.
 RGLRU_TOL, RWKV_TOL = 1e-5, 1e-4
 # last-position logits of two prefills of one model (flash vs reference
-# attention in bf16; per-token vs chunked wkv in f32), relative to the
+# attention in bf16; K5 vs the chunked wkv in f32), relative to the
 # largest logit.  rwkv6-3b is compared in f32: through its 32 bf16 layers
 # one rounding flip grows to ~10% of the logits whichever form is right.
 PREFILL_LOGITS_RTOL = {torch.bfloat16: 5e-2, torch.float32: 1e-3}
@@ -334,9 +340,10 @@ DIST_COMPRESS_SHAPE = (128256, 2048)
 # recurrentgemma-2b's first pattern (RG-LRU, RG-LRU, local attention) and
 # rwkv6-3b's first 2 layers: the prefill of PREFILL_B x PREFILL_S (held
 # as [dist_prefill] holds its own: recurrentgemma-2b in bf16, rwkv6-3b in
-# f32, as its one-rank prefill is held), layer 0's temporal mix with
-# use_kernel=True in f32 (within LAYER_TOL of one rank, K4 / K5 against
-# K4 / K5) and one train_cell step of DIST_REC_TRAIN_B x DIST_REC_TRAIN_S
+# f32, as its one-rank prefill is held; K4 / K5 once a recurrent layer
+# on each rank), layer 0's temporal mix with use_kernel=True in f32
+# (within LAYER_TOL of one rank's use_kernel=False) and one train_cell
+# step of DIST_REC_TRAIN_B x DIST_REC_TRAIN_S
 # (held as [cell_train] holds two runs); then rwkv6-3b's time mix at
 # (1, 16), 2.5 heads a rank, 1 x SPLIT_HEAD_S in f32 through K5
 DIST_REC_LAYERS = {"recurrentgemma-2b": 3, "rwkv6-3b": 2}
@@ -345,12 +352,20 @@ DIST_REC_TRAIN_B, DIST_REC_TRAIN_S = 2, 256
 # by about lr whatever its gradient, so an element whose gradient sign
 # rounding flips moves 2 lr apart: a zero-initialized leaf (conv_b,
 # mu_base, decay_base, bonus) is then far apart in norm (reported, not
-# held), and in bf16 the TP partial sums (the LoRA combine rounds each
-# rank's bf16 partial) take rwkv6-3b's grad norm 5.79e-3 apart and one
+# held).  rwkv6-3b's grad norm stands 5.79e-3 from one rank's and one
 # leaf 0.073 lr in mean (read at 2 x 256 on an NVIDIA H100 80GB HBM3 at
-# 700 W; at 2 x 512, 4.47e-3 and 0.078).  A rank's shard of a leaf's
-# gradient dropped or misplaced at (1, 4) moves a quarter of the leaf by
-# lr or more: 0.25 lr in mean at least.
+# 700 W; at 2 x 512, 4.47e-3 and 0.078), past [cell_train]'s 5e-3, by
+# bf16 rounding: the Finch LoRA's interpolation weights
+# (recurrent._lora_mu) are a product over the LoRA width that the mesh
+# splits, and each rank's bf16 partial is rounded before the all-reduce
+# sums them, which doubles the error of mu against one rank's single
+# product (tests/test_torch_steps.py::
+# test_lora_combine_on_a_mesh_rounds_each_partial_sum).  mu scales every
+# interpolated input, so the r and k paths' gradients (wr, wk, the LoRA,
+# mu_base, the token table) shrink more than one rank's bf16 ones do
+# against f32 gradients; in f32 the mesh's step is one rank's to ~1e-6.
+# A rank's shard of a leaf's gradient dropped or misplaced at (1, 4)
+# moves a quarter of the leaf by lr or more: 0.25 lr in mean at least.
 DIST_REC_RTOL, DIST_REC_MEAN_LR = 1e-2, 0.15
 SPLIT_HEAD_RANKS, SPLIT_HEAD_S = 16, 2048
 
@@ -363,6 +378,25 @@ def phase(name: str, **fields) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke failed: {what}")
+
+
+class SectionClock:
+    """The host wall of each numbered section of :func:`main`: ``start``
+    closes the open section with a ``[section_time]`` line and opens the
+    next; ``total_s`` is the wall since this module was imported."""
+
+    def __init__(self):
+        self.name, self.t = None, 0.0
+
+    def start(self, name: str | None) -> None:
+        now = time.perf_counter()
+        if self.name is not None:
+            phase("section_time", section=self.name, s=f"{now - self.t:.1f}")
+        self.name, self.t = name, now
+
+    @staticmethod
+    def total_s() -> float:
+        return time.perf_counter() - _T0
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1908,7 +1942,7 @@ def _dist_recurrent_ranks(rank, world):
     from repro_torch.launch.steps import mesh_config, prefill, train_cell
     from repro_torch.models import Transformer, init_params, model_struct
     from repro_torch.models import recurrent
-    from repro_torch.models.base import (LOCAL, RECURRENT, cycle_plan,
+    from repro_torch.models.base import (LOCAL, RECURRENT, RWKV, cycle_plan,
                                          tree_leaves)
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.runtime import full_tensor
@@ -1953,13 +1987,16 @@ def _dist_recurrent_ranks(rank, world):
         mine = local_batch(batch, mcfg, mesh)
         prefill(model, mcfg, mine)                      # warm-up
         comm.STATS.reset()
-        ops.flash_attention.launches = 0
+        ops.flash_attention.launches = kernel.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, caches = prefill(model, mcfg, mine)
         torch.cuda.synchronize()
         res["prefill"] = {"wall": time.perf_counter() - t0,
                           "k3_launches": ops.flash_attention.launches,
+                          "scan_launches": kernel.launches,
+                          "scan_layers": sum(k in (RECURRENT, RWKV)
+                                             for k in cut.kinds),
                           "score_shard": mcfg.score_shard,
                           "dtype": str(dtype)[6:],
                           "comm_gb": comm.STATS.bytes / 1e9}
@@ -1986,7 +2023,7 @@ def _dist_recurrent_ranks(rank, world):
             with torch.inference_mode():
                 want, want_state = fn(_f32_block(getattr(
                     getattr(one.segments[0][0], "0"), sub)), x, cfg=cut,
-                    use_kernel=True)
+                    use_kernel=False)
             res["layer"].update(_layer_errs(got, state, want, want_state))
         del one, model, params, got, state, x
         torch.cuda.empty_cache()
@@ -2061,7 +2098,7 @@ def _dist_world_split_head(rank, world):
             device=dev))
         with torch.inference_mode():
             want, want_state = recurrent.rwkv6_time_mix(
-                whole, x, cfg=cfg, use_kernel=True)
+                whole, x, cfg=cfg, use_kernel=False)
         out.update(_layer_errs(got, state, want, want_state))
     return out
 
@@ -2234,11 +2271,15 @@ def dist_recurrent_phases(rr, *, launches) -> dict:
                 launches["flash_attention"][
                     f"{arch} dist_recurrent prefill rank {r}"] = \
                     x["prefill"]["k3_launches"]
+            launches[kname][f"{arch} dist_recurrent prefill rank {r}"] = \
+                x["prefill"]["scan_launches"]
             launches[kname][f"{arch} dist_recurrent layer 0 rank {r}"] = \
                 x["layer"]["launches"]
             phase("dist_recurrent", arch=arch, rank=r,
                   prefill_wall_s=f"{x['prefill']['wall']:.4f}",
                   k3_launches=x["prefill"]["k3_launches"],
+                  **{f"prefill_{kname}_launches":
+                     x["prefill"]["scan_launches"]},
                   prefill_collective_gb=f"{x['prefill']['comm_gb']:.3f}",
                   layer_wall_s=f"{x['layer']['wall']:.4f}",
                   **{f"{kname}_launches": x["layer"]["launches"]},
@@ -2255,14 +2296,16 @@ def dist_recurrent_phases(rr, *, launches) -> dict:
               last_logits_max_abs_err=f"{pf['err']:.3e}",
               ref_logits_max_abs=f"{pf['ref_max']:.3e}", rtol=ptol)
         k3 = 1 if arch == "recurrentgemma-2b" else 0
-        check(all(res[arch]["prefill"]["finite"]
-                  and res[arch]["prefill"]["k3_launches"] == k3
-                  for res in rr),
-              f"dist_recurrent {arch}: prefill not finite or K3 launches "
-              f"{[res[arch]['prefill']['k3_launches'] for res in rr]}")
+        got = [(res[arch]["prefill"]["k3_launches"],
+                res[arch]["prefill"]["scan_launches"]) for res in rr]
+        check(all(res[arch]["prefill"]["finite"] for res in rr)
+              and all(n == (k3, pf["scan_layers"]) for n in got),
+              f"dist_recurrent {arch}: prefill not finite, or K3 / {kname} "
+              f"launches {got} not {k3} / {pf['scan_layers']} a rank")
         check(pf["err"] <= ptol * pf["ref_max"],
               f"dist_recurrent {arch}: prefill logits differ by {pf['err']}")
-        phase("dist_recurrent", arch=arch, part="layer 0, use_kernel=True",
+        phase("dist_recurrent", arch=arch,
+              part="layer 0, use_kernel=True vs one rank's False",
               dtype="float32", shape=(PREFILL_B, PREFILL_S),
               out_max_abs_err=f"{ly['out_err']:.3e}",
               out_max_abs=f"{ly['out_max']:.3e}",
@@ -2600,6 +2643,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    clock = SectionClock()
     counters = {"flash_attention": ops.flash_attention,
                 "rglru_scan": ops.rglru_scan, "rwkv6_scan": ops.rwkv6_scan,
                 "hanoi_run": ops.hanoi_run, "sm_schedule": ops.sm_schedule}
@@ -2629,6 +2673,7 @@ def main() -> int:
                   f"{expect.get(name, 0)}")
         return out, wall, got
 
+    clock.start("1")
     # 1. device ------------------------------------------------------------
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = subprocess.run(
@@ -2639,6 +2684,7 @@ def main() -> int:
           cuda=torch.version.cuda)
     print(smi, flush=True)
 
+    clock.start("2")
     # 2. build: one nvcc per kernel, all started together --------------------
     t0 = time.perf_counter()
     logs = _build.build()
@@ -2671,6 +2717,7 @@ def main() -> int:
     check(n_mma["HMMA"] + n_mma["HGMMA"] > 0,
           "the flash-attention library has no tensor-core instruction")
 
+    clock.start("3")
     # 3. kernel check: each kernel vs its plain twin on the same inputs -----
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -3032,7 +3079,8 @@ def main() -> int:
     del k2_ins, k2_state, k2_code
     torch.cuda.empty_cache()
 
-    # 4. full-width bf16 prefills: the main paths through K3 ----------------
+    clock.start("4")
+    # 4. full-width bf16 prefills: the main paths through K3, K4 and K5 -----
     tokens = torch.randint(0, 65536, (PREFILL_B, PREFILL_S), generator=gen,
                            device=dev)
 
@@ -3135,7 +3183,8 @@ def main() -> int:
                 f"{arch} layer 0", lambda: layer_fn(params, x, cfg=cfg,
                                                     use_kernel=True),
                 {kernel: 1})
-            want, want_state = layer_fn(params, x, cfg=cfg)
+            want, want_state = layer_fn(params, x, cfg=cfg,
+                                        use_kernel=False)
         state_errs = {n: max_err(state[n], want_state[n]) for n in want_state}
         out_err = max_err(out, want)
         phase("layer", arch=arch, layer=f"0.{sub}", dtype="float32",
@@ -3164,7 +3213,8 @@ def main() -> int:
     n_local = cfg.kinds.count("local")
     model, caches = prefill_phase("recurrentgemma-2b", cfg,
                                   cfg.replace(attn_impl="reference"),
-                                  {"flash_attention": n_local},
+                                  {"flash_attention": n_local,
+                                   "rglru_scan": cfg.kinds.count("recurrent")},
                                   torch.bfloat16)
     repeat = cfg.layer_plan[0][1]
     check(caches[0]["0"]["h"].shape == (repeat, PREFILL_B, cfg.lru_width)
@@ -3182,8 +3232,8 @@ def main() -> int:
     # for 16-token chunks and not for the default 64.
     cfg = prefill_config("rwkv6-3b")
     model, caches = prefill_phase(
-        "rwkv6-3b", cfg, cfg.replace(rwkv_impl="chunked", rwkv_chunk=16), {},
-        torch.float32)
+        "rwkv6-3b", cfg, cfg.replace(rwkv_impl="chunked", rwkv_chunk=16),
+        {"rwkv6_scan": cfg.n_layers}, torch.float32)
     check(caches[0]["0"]["wkv"].shape == (cfg.n_layers, PREFILL_B,
                                           *rwkv_heads, rwkv_heads[1]),
           "rwkv6 prefill cache shape")
@@ -3193,11 +3243,13 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
+    clock.start("5")
     # 5. serve: full width, f32, greedy decode of 4 requests -----------------
     for arch in ("llama3.2-1b", "recurrentgemma-2b", "rwkv6-3b"):
         serve_phase(arch, run_path, dev)
         torch.cuda.empty_cache()
 
+    clock.start("5a")
     # 5a. MoE serving: deepseek-moe-16b whole and mixtral-8x7b at full width,
     # through K3 at hd 128 (full multi-head; a 4096 window at 8192 tokens) --
     f32_fields = dict(init_params=init_params, model_struct=model_struct,
@@ -3285,11 +3337,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     f32_phase(arch, full, mix_tokens)
 
+    clock.start("5b")
     # 5b. the other configs: gemma3-4b, minitron-4b, internlm2-20b and the
     # frontend models internvl2-2b and hubert-xlarge, whole ----------------
     config_numbers = config_phases(prefill_phase=prefill_phase,
                                    run_path=run_path, dev=dev, gen=gen)
 
+    clock.start("5c")
     # 5c. the simulator at full size: one launch of K1 through run_batch ----
     sim_cfg = MachineConfig(n_threads=32, mem_size=256, max_steps=60_000)
     suite = programs.make_suite(sim_cfg)
@@ -3403,6 +3457,7 @@ def main() -> int:
     del warm, results, k1_state, twin, ins, host, got_pcs, got_masks
     torch.cuda.empty_cache()
 
+    clock.start("5d")
     # 5d. Fig 9 through compare, on the card ------------------------------------
     groups = len(plan_dispatch(get_mechanism("hanoi_torch"), [
         as_request(b, sim_cfg) for b in suite]))
@@ -3429,6 +3484,7 @@ def main() -> int:
           rows={r.program: f"{100 * r.discrepancy:.4f}" for r in rows},
           hanoi_torch_vs_hanoi_max=max(r.discrepancy for r in same.rows))
 
+    clock.start("5e")
     # 5e. the SM model at full size: sm_torch, one K1 and one K2 launch a
     # grid --------------------------------------------------------------------
     def suite_req(i, **kw):
@@ -3577,6 +3633,7 @@ def main() -> int:
     del sms_b, cells_b
     torch.cuda.empty_cache()
 
+    clock.start("5f")
     # 5f. Fig 10 through compare(timing="cycle"), on the card -------------------
     fig10, _, got = run_path(
         "fig10 hanoi_torch vs turing_oracle",
@@ -3597,6 +3654,7 @@ def main() -> int:
           paper_pct=0.19,
           rows={r.program: f"{100 * r.ipc_delta:.4f}" for r in rows10})
 
+    clock.start("5g")
     # 5g. static analysis and annotation synthesis, then the synthesized
     # suite on the card ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -3651,6 +3709,7 @@ def main() -> int:
           deviations=deviated, held_to="K1's twin, bit for bit",
           card=repr(smi))
 
+    clock.start("5h")
     # 5h. trace sinks and the archive, on the card ----------------------------
     archive_numbers = {}
     scratch = ROOT / "build"
@@ -3851,6 +3910,7 @@ def main() -> int:
         shutil.rmtree(archive_root, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    clock.start("5i")
     # 5i. the simulation service on the card ----------------------------------
     service_numbers = service_phases(
         run_path=run_path, launches=launches, reqs=reqs, sim=sim,
@@ -3858,18 +3918,22 @@ def main() -> int:
         SimulationService=SimulationService, nearest_rank=nearest_rank,
         smi=smi)
 
+    clock.start("5j")
     # 5j. the paper's benchmarks and the quickstart on the card --------------
     bench_numbers = bench_phases(
         run_path=run_path, get_mechanism=get_mechanism,
         as_request=as_request, plan_dispatch=plan_dispatch)
 
+    clock.start("5k")
     # 5k. training on the card ------------------------------------------------
     train_phases(run_path=run_path, dev=dev)
 
+    clock.start("5l'")
     # 5l'. the cells; the dry run's sweeps, on the host beside the next ------
     cell_phases(run_path=run_path, dev=dev)
     dryrun = dryrun_start()
 
+    clock.start("5l")
     # 5l. distribution: ranks sharing the card ---------------------------------
     try:
         dist_numbers = dist_phases(launches=launches)
@@ -3880,6 +3944,7 @@ def main() -> int:
         raise
     dryrun_finish(dryrun)
 
+    clock.start("6")
     # 6. kernel times at the main paths' shapes ------------------------------
     def attention_times(B, S, H, K, hd, window, rows=None):
         """K3's times at a main path's shape; ``rows`` (a, b): a rank's
@@ -3890,9 +3955,11 @@ def main() -> int:
         bq, bk = fa.tiles(b - a, S, hd, dtype=torch.bfloat16)
         ms = cuda_time_ms(lambda: ops.flash_attention(
             q, k, v, causal=True, window=window, q_offset=a), 20)
+        # the plain twin is a host loop over tiles (0.07-1.8 s a call):
+        # one call, its first, is its time
         plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(
             q, k, v, causal=True, window=window, bq=bq, bk=bk, q_offset=a),
-            2, warmup=1)
+            1, warmup=0)
         # whole rows with a window that reaches past S: the causal mask
         # SDPA takes; else the rows' mask
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -4050,10 +4117,11 @@ def main() -> int:
           roofline_share=f"{k2_bound[0] / k2_ms:.4f}",
           ptxas=json.dumps(ptxas["sm_sched"]))
 
+    clock.start("7")
     # 7. kernels line, device line -------------------------------------------
     no_library = ("no single PyTorch call computes this recurrence "
                   "(torch has no scan)")
-    print(json.dumps({"kernels": [
+    kernels_line = json.dumps({"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "status": "redesigned",
          "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -4151,7 +4219,10 @@ def main() -> int:
          "ptxas": ptxas["sm_sched"], "checks": k2_checks,
          "sm_a": sm_a, "sm_b": sm_b,
          "fig10_mean_abs_ipc_delta": fig10_mean},
-    ]}), flush=True)
+    ]})
+    clock.start(None)
+    phase("wall", total_s=f"{clock.total_s():.1f}")
+    print(kernels_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
     return 0

@@ -20,8 +20,9 @@ Usage::
 
 Replays run on the card unless ``--device cpu`` is given, where
 ``hanoi_torch`` runs its plain twin.  ``--watch`` tails a growing archive
-and replays new runs as they are appended (the reference's ``serve --mode
-replay --watch``, whose serve mode is not ported yet).
+and replays new runs as they are appended, as the reference's ``serve
+--mode replay --watch`` does (in the port: ``python -m
+repro_torch.launch.serve --mode replay --archive-dir DIR --watch``).
 
 ``--expect-zero`` exits non-zero unless at least one run replayed and every
 replayed run came back with exactly 0.0 discrepancy — the self-replay

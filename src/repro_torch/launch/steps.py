@@ -326,12 +326,16 @@ def train_cell(arch: str | ModelConfig, shape: str | Shape, mesh, *,
         grads = model.grads
         gsum = None
         lsum = torch.zeros((), dtype=torch.float32)
+        # each gradient zeroed on its local shard: a DTensor's own zero_
+        # also dispatches an empty tensor of the global shape, which torch
+        # 2.11's MemTracker counts whole on the rank (a dry run's peak then
+        # held a whole expert stack of mixtral-8x7b, 30 GB)
         for g in tree_leaves(grads):
-            g.zero_()
+            _local(g).zero_()
         for i in range(microbatches):
             if not zero1 and i:
                 for g in tree_leaves(grads):
-                    g.zero_()
+                    _local(g).zero_()
             loss, metrics = loss_fn(model, cfg, microbatch(batch, i))
             loss.backward()
             if not zero1:

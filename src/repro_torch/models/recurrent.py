@@ -2,9 +2,17 @@
 (RecurrentGemma/Griffin) and RWKV-6 (Finch, data-dependent decay).  Both
 have a parallel prefill path and a single-step decode path.
 
-``use_kernel=True`` on a prefill sends the scan to the port's kernel
-wrapper (``kernels.ops``), as the JAX layers send it to the Pallas kernel;
-the model itself never sets it, as in the JAX package.
+A prefill's scan (no state) takes the route :func:`scan_route` names from
+``use_kernel``: ``True`` sends it to the port's kernel wrapper
+(``kernels.ops``: K4 / K5 on the card, their plain twins on the CPU), as
+the JAX layers send it to the Pallas kernel; ``False`` runs the plain form,
+the JAX package's default.  ``None``, the default here and the model's,
+runs the kernel where it can: on CUDA operands outside autograd (no
+operand needs a gradient under grad mode).  On the CPU, on the meta device
+(a dry run counts the plain loop) and under a gradient (the kernels have
+no backward pass) it runs the plain form; an explicit
+``cfg.rwkv_impl="chunked"`` comes first.  Decode (a state, one step) is the
+same on every route.
 
 On a mesh (``lay``, a :class:`~repro_torch.sharding.layout.Layout`) both
 are tensor-parallel blocks on a rank's shards, split as the rules split
@@ -26,6 +34,28 @@ from repro_torch.sharding.layout import seq_gather, seq_rows, tp_sharded
 
 from .base import ModelConfig, P
 from .layers import _w, shard_act
+
+
+def scan_route(use_kernel: bool | None, device, requires_grad: bool,
+               rwkv_impl: str = "scan") -> str:
+    """Where a prefill's scan runs: ``"kernel"`` (``kops.rglru_scan`` /
+    ``kops.rwkv6_scan``), ``"chunked"`` (RWKV-6's chunked form) or
+    ``"plain"`` (``rglru_scan_ref`` / ``rwkv6_scan_ref``).
+
+    ``use_kernel`` True or False is the JAX package's switch, the kernel
+    before ``rwkv_impl`` as in its branch order.  ``None`` takes the kernel
+    only on a CUDA ``device`` with no operand that ``requires_grad`` under
+    grad mode, after an explicit ``rwkv_impl="chunked"``.  Chosen from the
+    operands before any launch: nothing falls back after an error."""
+    if use_kernel is None:
+        if rwkv_impl == "chunked":
+            return "chunked"
+        needs_grad = requires_grad and torch.is_grad_enabled()
+        use_kernel = torch.device(device).type == "cuda" and not needs_grad
+    if use_kernel:
+        return "kernel"
+    return "chunked" if rwkv_impl == "chunked" else "plain"
+
 
 # ---------------------------------------------------------------------------
 # RG-LRU (Griffin): h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
@@ -89,7 +119,7 @@ def _conv1d(params, x, state=None, lay=None):
 
 
 def rglru(params, x, *, cfg: ModelConfig, state=None,
-          use_kernel: bool = False, lay=None):
+          use_kernel: bool | None = None, lay=None):
     """x: [B, S, d].  state = dict(conv=[B,cw-1,w], h=[B,w]) for decode.
 
     Returns (out [B,S,d], new_state); the state's h is the last step
@@ -113,7 +143,9 @@ def rglru(params, x, *, cfg: ModelConfig, state=None,
     a, b = _rglru_coeffs(params, xb, lay)
 
     if state is None:
-        h = kops.rglru_scan(a, b) if use_kernel else rglru_scan_ref(a, b)
+        kernel = scan_route(use_kernel, a.device, a.requires_grad
+                            or b.requires_grad) == "kernel"
+        h = kops.rglru_scan(a, b) if kernel else rglru_scan_ref(a, b)
     else:
         h = a * state["h"][:, None, :] + b        # S == 1
     h = h.to(x.dtype)
@@ -173,7 +205,7 @@ def _token_shift(x, last):
 
 
 def rwkv6_time_mix(p, x, *, cfg: ModelConfig, state=None,
-                   use_kernel: bool = False, lay=None):
+                   use_kernel: bool | None = None, lay=None):
     """x: [B, S, d]. state = dict(shift=[B,1,d], wkv=[B,H,hd,hd]).
     On a mesh (``lay``) see :func:`_time_mix_tp`."""
     if lay is not None:
@@ -184,10 +216,7 @@ def rwkv6_time_mix(p, x, *, cfg: ModelConfig, state=None,
     H = d // hd
     xs = _token_shift(x, None if state is None else state["shift"])
     dx = xs - x
-    # data-dependent interpolation (Finch lora)
-    lx = torch.tanh(x @ p.lora_a.to(x.dtype))
-    mu = p.mu_base.to(x.dtype)[:, None, None, :] \
-        + torch.einsum("bsl,nld->nbsd", lx, p.lora_b.to(x.dtype))
+    mu = _lora_mu(p, x, None)
     xr, xk, xv, xg, xw = [x + dx * mu[i] for i in range(5)]
 
     r = (xr @ p.wr.to(x.dtype)).reshape(B, S, H, hd)
@@ -212,16 +241,42 @@ def rwkv6_time_mix(p, x, *, cfg: ModelConfig, state=None,
     return out, {"shift": x[:, -1:, :], "wkv": s_last}
 
 
-def _wkv(cfg: ModelConfig, r, k, v, w, logw, u, s0, use_kernel: bool):
-    """The wkv recurrence of [B, S, H, hd] f32 operands: K5 (a prefill with
-    ``use_kernel``), the chunked form (``cfg.rwkv_impl``) or the per-token
-    scan from ``s0``.  Returns (out, s_last)."""
-    if s0 is None and use_kernel:
-        return kops.rwkv6_scan(r, k, v, w, u)
-    if (s0 is None and cfg.rwkv_impl == "chunked"
-            and (ch := rwkv6_wkv_chunked(r, k, v, logw, u,
-                                         chunk=cfg.rwkv_chunk)) is not None):
-        return ch
+def _lora_mu(p, x, lay):
+    """The Finch data-dependent interpolation weights [5, B, S, d]:
+    ``mu_base + tanh(x @ lora_a) @ lora_b``, in x's dtype.
+
+    On a mesh lora_a / lora_b are column / row blocks of the LoRA width
+    ('mlp'): a rank's product is a partial sum over its block, rounded to
+    x's dtype, and the partials are all-reduced over 'model', as the JAX
+    package's partitioned program rounds its dot's partial results.  In
+    bf16 that is more roundings than one rank's single product, and
+    their error is what sets a mesh's bf16 training step apart from one
+    rank's (``tests/test_torch_steps.py``)."""
+    lx = torch.tanh(x @ _w(p, "lora_a", lay).to(x.dtype))
+    part = torch.einsum("bsl,nld->nbsd", lx,
+                        _w(p, "lora_b", lay).to(x.dtype))
+    if lay is not None:
+        part = comm.psum(part, lay.model)
+    return _w(p, "mu_base", lay).to(x.dtype)[:, None, None, :] + part
+
+
+def _wkv(cfg: ModelConfig, r, k, v, w, logw, u, s0,
+         use_kernel: bool | None):
+    """The wkv recurrence of [B, S, H, hd] f32 operands: a prefill on the
+    route :func:`scan_route` names (K5, the chunked form, or the per-token
+    scan; a sequence the chunks do not divide takes the route without
+    them), a decode by the per-token scan from ``s0``.  Returns (out,
+    s_last)."""
+    if s0 is None:
+        grad = any(t.requires_grad for t in (r, k, v, w, u))
+        route = scan_route(use_kernel, r.device, grad, cfg.rwkv_impl)
+        if route == "chunked":
+            ch = rwkv6_wkv_chunked(r, k, v, logw, u, chunk=cfg.rwkv_chunk)
+            if ch is not None:
+                return ch
+            route = scan_route(use_kernel, r.device, grad)
+        if route == "kernel":
+            return kops.rwkv6_scan(r, k, v, w, u)
     return rwkv6_scan_ref(r, k, v, w, u, s0=s0)
 
 
@@ -256,7 +311,8 @@ def _group_norm_split(out, own, h0: int, H: int, lay):
         var.to(out.dtype) + _LN_X_EPS)
 
 
-def _time_mix_tp(p, x, *, cfg: ModelConfig, state, use_kernel: bool, lay):
+def _time_mix_tp(p, x, *, cfg: ModelConfig, state,
+                 use_kernel: bool | None, lay):
     """The RWKV-6 time mix on a mesh.  The rules split wr, wk, wv, wg
     (columns) and wo (rows) on 'heads_x': rank r owns the d/tp channels
     [c0, c1) = [r d/tp, (r+1) d/tp), whole heads when tp divides the
@@ -266,9 +322,10 @@ def _time_mix_tp(p, x, *, cfg: ModelConfig, state, use_kernel: bool, lay):
     computes the outputs of its own channels exactly: it projects r, k,
     v and g on its own columns, all-gathers r and k over 'model' for the
     rest of the heads [h0, h1) its block touches (only when a head is
-    split), and scans those heads with v zero outside its channels (K5
-    with ``use_kernel``, else the per-token or chunked form); the
-    outputs of its own channels are the one-rank ones, the others zero.
+    split), and scans those heads with v zero outside its channels (on
+    the route :func:`scan_route` names: K5, the chunked or the per-token
+    form); the outputs of its own channels are the one-rank ones, the
+    others zero.
     The decay and the interpolation weights come whole from the LoRA
     paths (lora_a / decay_a column blocks and lora_b / decay_b row
     blocks on 'mlp', their partial sums all-reduced over 'model').  ln_x
@@ -297,10 +354,7 @@ def _time_mix_tp(p, x, *, cfg: ModelConfig, state, use_kernel: bool, lay):
                                                   lay.model)
     xs = _token_shift(x, last)
     dx = xs - x
-    lx = torch.tanh(x @ _w(p, "lora_a", lay).to(x.dtype))
-    mu = _w(p, "mu_base", lay).to(x.dtype)[:, None, None, :] + comm.psum(
-        torch.einsum("bsl,nld->nbsd", lx, _w(p, "lora_b", lay).to(x.dtype)),
-        lay.model)
+    mu = _lora_mu(p, x, lay)
     xr, xk, xv, xg, xw = [x + dx * mu[i] for i in range(5)]
 
     r, k, v = (xi @ _w(p, n, lay).to(x.dtype)

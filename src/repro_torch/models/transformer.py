@@ -168,7 +168,7 @@ class Transformer(nn.Module):
         zero them before the next.  A parameter that the loss never reads
         keeps a zero gradient.  Returns ``self.grads``."""
         if self.grads is None:
-            self.grads = tree_map(torch.zeros_like, self.tree)
+            self.grads = tree_map(_zeros_like_local, self.tree)
 
             def bind(module, grads, r=None):
                 for name, g in grads.items():
@@ -188,6 +188,23 @@ class Transformer(nn.Module):
                 for r, lp in enumerate(layers):
                     bind(lp, seg_grads, r)
         return self.grads
+
+
+def _zeros_like_local(t):
+    """Zeros laid out as ``t``; for a DTensor, made from zeros of its local
+    shard, read without a dispatch (``to_local`` is a view op, whose
+    output a dry run's ``MemTracker`` would count as new bytes).
+    ``zeros_like`` of the DTensor itself dispatches the global shape,
+    which torch 2.11's ``MemTracker`` counts as that many bytes on the
+    rank (torch 2.13's counts the shard): a dry run's peak held the whole
+    gradient of each sharded weight there, 30 GB for each of
+    mixtral-8x7b's two expert stacks."""
+    if not hasattr(t, "device_mesh"):
+        return torch.zeros_like(t)
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(torch.zeros_like(t._local_tensor),
+                              t.device_mesh, t.placements, run_check=False,
+                              shape=t.shape, stride=t.stride())
 
 
 def _placement_dims(t) -> tuple:

@@ -115,6 +115,31 @@ def world4(tmp_path_factory):
     return res[0], ref, batches, ck
 
 
+def test_a_ranks_result_outlives_the_rank():
+    """A rank of ``spawn_world`` sends its result pickled by value: read
+    only after the rank's process has exited, a tensor in it arrives.
+    Put as it is, torch would share the tensor by a file descriptor that
+    the rank serves until it exits, and a caller that read it later failed
+    (``FileNotFoundError`` in ``rebuild_storage_fd``)."""
+    import pickle
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    store = dist.TCPStore("localhost", 0, 1, is_master=True,
+                          wait_for_workers=False)
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    proc = ctx.Process(target=tmesh._rank_main, args=(
+        0, workers.arange_result, 1, store.port, "cpu", q, ()))
+    proc.start()
+    proc.join(timeout=120)
+    assert proc.exitcode == 0
+    rank, payload = q.get(timeout=30)
+    got = pickle.loads(payload)
+    assert rank == 0 and got["rank"] == 0
+    assert torch.equal(got["t"], torch.arange(1000, dtype=torch.float32))
+
+
 def test_sharded_train_step_matches_one_rank_and_the_reference(world4):
     out, ref, batches, _ = world4
     cfg, jp, tree = ref["llama3.2-1b"]

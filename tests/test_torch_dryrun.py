@@ -23,6 +23,9 @@
 - A collective over a group of one rank (the 'data' axis of a (1, 2)
   world) counts nothing; over two ranks it counts by the reference's
   byte rule.
+- The gradients of a sharded model are made and zeroed on local shards
+  (``Transformer.trainable()``, ``train_cell``'s step), so the tracker's
+  peak is the same under any torch version.
 - ``roofline.fmt_table`` over a small record set.
 - Nothing is written to ``results/``, where the reference's sweep and its
   tests (``test_dryrun_results.py``, ``test_perf_artifacts.py``) look.
@@ -105,6 +108,66 @@ _GROUPS = """
             comm.all_reduce(x, mesh.get_group(axis))
             comm.all_gather(x, 0, mesh.get_group(axis))
         out[axis] = [m.cost.coll_bytes_by_kind, m.cost.coll_count_by_kind]
+    print(json.dumps(out))
+"""
+
+
+_GRADS = """
+    import json
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.configs import Shape, get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.steps import mesh_config, train_cell
+    from repro_torch.models import Transformer, init_params, model_struct
+    from repro_torch.models.base import tree_leaves
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import param_pspecs
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    mesh = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+    arch = get_config("mixtral-8x7b", smoke=True)
+    cfg = mesh_config(arch, mesh, 4)
+    struct = model_struct(cfg)
+    model = Transformer(cfg, init_params(
+        struct, torch.Generator().manual_seed(0), device="cpu", mesh=mesh,
+        specs=param_pspecs(struct, cfg, mesh)))
+
+    class Wrapped(TorchDispatchMode):
+        ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if isinstance(out, torch.Tensor) and type(out) is not torch.Tensor:
+                self.ops.append(str(func))
+            return out
+
+    mt = MemTracker()
+    with mt, Wrapped():
+        grads = model.trainable()
+    leaves = tree_leaves(grads)
+    out = {
+        "trainable_ops": list(Wrapped.ops),
+        "peak": max(v.get("Total", 0) for v in
+                    mt.get_tracker_snapshot("peak").values()),
+        "local": sum(g.to_local().numel() * g.element_size()
+                     for g in leaves),
+        "whole": sum(g.numel() * g.element_size() for g in leaves),
+        "sharded": sum(g.to_local().numel() < g.numel() for g in leaves)}
+    cell = train_cell(arch, Shape("t", 32, 4, "train"), mesh)
+    params = init_params(model_struct(cell.cfg),
+                         torch.Generator().manual_seed(0), device="cpu",
+                         mesh=mesh, specs=cell.in_shardings[0])
+    batch = {k: torch.from_numpy(v)
+             for k, v in synthetic_batch(arch, 4, 32).items()}
+    opt = adamw_init(params)
+    Wrapped.ops = []
+    with Wrapped():
+        cell.fn(params, opt, batch)
+    out["step_ops"] = Wrapped.ops
     print(json.dumps(out))
 """
 
@@ -228,6 +291,23 @@ def test_collectives_over_a_group_of_one_count_nothing():
     assert out["data"] == [{}, {}]
     assert out["model"] == [{"all-reduce": 2048, "all-gather": 2048},
                             {"all-reduce": 1, "all-gather": 1}]
+
+
+def test_sharded_gradients_are_made_on_local_shards():
+    """On a sharded model (smoke mixtral-8x7b at (1, 4), a fake world)
+    ``Transformer.trainable()`` makes each gradient from zeros of the
+    parameter's local shard, and ``train_cell``'s step zeroes it there:
+    neither dispatches an op on a DTensor, and the dry run's memory
+    tracker counts the gradients' local bytes and no more.  A DTensor's
+    own ``zeros_like`` or ``zero_`` dispatches the global shape, which
+    torch 2.11's tracker counted whole on the rank: mixtral-8x7b's
+    ``train_4k`` peak (remat "dots") read 60.13 GB under torch 2.11 and
+    40.33 GB under torch 2.13 at (16, 16), 30.06 and 21.86 GB at (2, 16,
+    16)."""
+    out = _json(_start(_GRADS))
+    assert out["trainable_ops"] == [] and out["step_ops"] == []
+    assert out["sharded"] > 0 and out["local"] < out["whole"]
+    assert out["peak"] == out["local"]
 
 
 def test_fmt_table():

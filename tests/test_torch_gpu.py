@@ -9,7 +9,9 @@ its twin bit for bit in every output, on K1's traces and on synthetic
 grids (:func:`sched_grid`, on which ``test_torch_sm.py`` holds the twin to
 JAX's scheduler).  K3-K5's wrappers refuse autograd on CUDA tensors, and
 two training steps of the smoke model on the card are held against the
-CPU's (which ``test_torch_train.py`` holds against JAX).  Distribution:
+CPU's (which ``test_torch_train.py`` holds against JAX).  The smoke
+recurrent models' prefills take K4 / K5 by default, held against
+``use_kernel=False``, and their training launches neither.  Distribution:
 two ranks sharing the card over gloo prefill the smoke model through K3
 on their heads and run the int8 all-reduce (equal to the CPU's), and a
 world of one over NCCL trains on a (1, 1) mesh as one rank does.
@@ -456,6 +458,78 @@ def test_smoke_recurrent_model_on_card_matches_cpu(cuda, arch):
         np.testing.assert_allclose(state[name].cpu().numpy(),
                                    want_state[name].numpy(), rtol=2e-4,
                                    atol=2e-4, err_msg=name)
+
+
+# A prefill's scans through K4 / K5 against the plain form: chip_smoke.py's
+# hold of a layer through a kernel against its plain branch, absolute
+LAYER_TOL = 1e-4
+SCAN_KERNELS = {"recurrentgemma-2b": "rglru_scan", "rwkv6-3b": "rwkv6_scan"}
+
+
+def _smoke_recurrent(arch, cuda):
+    """The smoke model on the card (f32 weights from a seed), its number of
+    recurrent layers and a batch of 2 x 40 tokens."""
+    cfg = get_config(arch, smoke=True)
+    params = init_params(model_struct(cfg), torch.Generator().manual_seed(7),
+                         device="cpu")
+    model = Transformer(cfg, tree_map(lambda t: t.to(cuda), params))
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, size=(2, 40))).to(cuda)
+    n_rec = sum(k in ("recurrent", "rwkv") for k in cfg.kinds)
+    return cfg, model, {"tokens": toks}, n_rec
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-2b"])
+def test_smoke_recurrent_prefill_takes_the_scan_kernel(cuda, arch,
+                                                       monkeypatch):
+    """The prefill on the card with the default use_kernel launches K5 /
+    K4 once a recurrent layer and runs no plain scan; its logits and
+    caches agree with the same prefill through use_kernel=False, which
+    runs the plain scans and launches nothing, within LAYER_TOL."""
+    import functools
+
+    from repro_torch.models import transformer as tm
+    cfg, model, batch, n_rec = _smoke_recurrent(arch, cuda)
+    counter = getattr(ops, SCAN_KERNELS[arch])
+    plain = []
+    for name in ("rglru_scan_ref", "rwkv6_scan_ref"):
+        fn = getattr(recurrent, name)
+        monkeypatch.setattr(recurrent, name, lambda *a, fn=fn, **kw: (
+            plain.append(fn), fn(*a, **kw))[1])
+    before = counter.launches
+    got, caches = prefill(model, cfg, batch)
+    torch.cuda.synchronize()
+    assert counter.launches == before + n_rec and plain == []
+    for name in ("rglru", "rwkv6_time_mix"):
+        monkeypatch.setattr(tm, name, functools.partial(
+            getattr(recurrent, name), use_kernel=False))
+    want, want_caches = prefill(model, cfg, batch)
+    assert counter.launches == before + n_rec and len(plain) == n_rec
+    assert (got - want).abs().max().item() <= LAYER_TOL
+    for a, b in zip(tree_leaves(caches), tree_leaves(want_caches),
+                    strict=True):
+        assert (a.float() - b.float()).abs().max().item() <= LAYER_TOL
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-2b"])
+def test_smoke_recurrent_layers_under_autograd_launch_nothing(cuda, arch):
+    """Training needs gradients and K4 / K5 have no backward pass: the loss
+    of the trainable smoke model on the card runs the plain scans, launches
+    neither kernel and gives finite gradients."""
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models.transformer import loss_fn
+    cfg, model, _, _ = _smoke_recurrent(arch, cuda)
+    grads = model.trainable()
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in synthetic_batch(cfg, 2, 40, step=0).items()}
+    before = (ops.rglru_scan.launches, ops.rwkv6_scan.launches)
+    loss, _ = loss_fn(model, cfg, batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (ops.rglru_scan.launches, ops.rwkv6_scan.launches) == before
+    leaves = tree_leaves(grads)
+    assert all(bool(torch.isfinite(g).all()) for g in leaves)
+    assert sum(g.abs().sum().item() for g in leaves) > 0
 
 
 # ---------------------------------------------------------------------------

@@ -512,8 +512,8 @@ def test_serve_emits_jax_tokens(arch):
 
 
 def test_recurrent_layers_take_the_kernel_only_when_asked(monkeypatch):
-    """The model's own forward never sets use_kernel (as in the JAX
-    package); a layer call with use_kernel=True goes through ops."""
+    """On the CPU the model's own forward (the default use_kernel) takes
+    the plain scan; a layer call with use_kernel=True goes through ops."""
     cfg, _, tcfg, model = _smoke("recurrentgemma-2b")
     calls = []
     orig = tops.rglru_scan
@@ -525,3 +525,69 @@ def test_recurrent_layers_take_the_kernel_only_when_asked(monkeypatch):
     trec.rglru(getattr(model.segments[0][0], "0").rglru,
                torch.zeros((1, 8, cfg.d_model)), cfg=tcfg, use_kernel=True)
     assert calls == [1]
+
+
+# ---------------------------------------------------------------------------
+# The route of a prefill's scan (recurrent.scan_route)
+# ---------------------------------------------------------------------------
+
+def _want_route(use_kernel, device, grad_mode, requires_grad, rwkv_impl):
+    """The route table: True is the kernel; otherwise an explicit chunked
+    form; otherwise False is the plain form, and None the kernel only on
+    a CUDA device with no gradient needed."""
+    if use_kernel is True:
+        return "kernel"
+    if rwkv_impl == "chunked":
+        return "chunked"
+    if use_kernel is False:
+        return "plain"
+    needs_grad = grad_mode and requires_grad
+    return "kernel" if device == "cuda" and not needs_grad else "plain"
+
+
+@pytest.mark.parametrize("rwkv_impl", ["scan", "chunked"])
+@pytest.mark.parametrize("use_kernel", [None, True, False])
+@pytest.mark.parametrize("requires_grad", [False, True])
+@pytest.mark.parametrize("grad_mode", [True, False])
+@pytest.mark.parametrize("device", ["cpu", "cuda", "meta"])
+def test_scan_route(device, grad_mode, requires_grad, use_kernel, rwkv_impl):
+    """The device is a torch.device, so the CUDA rows need no card."""
+    with torch.set_grad_enabled(grad_mode):
+        got = trec.scan_route(use_kernel, torch.device(device),
+                              requires_grad, rwkv_impl)
+    assert got == _want_route(use_kernel, device, grad_mode, requires_grad,
+                              rwkv_impl)
+
+
+@pytest.mark.parametrize("layer", ["rglru", "rwkv6_time_mix"])
+def test_default_route_on_the_cpu_is_jax_plain_form(layer, monkeypatch):
+    """The layers with the default use_kernel on CPU tensors against the
+    JAX package's use_kernel=False, prefill and one decode step: the plain
+    form, no call of the kernel wrappers."""
+    calls = []
+    for name in ("rglru_scan", "rwkv6_scan"):
+        monkeypatch.setattr(tops, name,
+                            lambda *a, name=name, **kw: calls.append(name))
+    if layer == "rglru":
+        cfg = jconfigs.get_config("recurrentgemma-2b", smoke=True)
+        tcfg = tconfigs.get_config("recurrentgemma-2b", smoke=True)
+        jp, tp = _layer_params(jrec.rglru_struct, cfg, 21)
+        tp = Params(tp)
+        jfn, tfn = jrec.rglru, trec.rglru
+    else:
+        cfg = jconfigs.get_config("rwkv6-3b", smoke=True)
+        tcfg = tconfigs.get_config("rwkv6-3b", smoke=True)
+        jp, tp = _layer_params(jrec.rwkv6_struct, cfg, 21)
+        jp, tp = jp["tm"], Params(tp["tm"])
+        jfn, tfn = jrec.rwkv6_time_mix, trec.rwkv6_time_mix
+    jx, tx = _both(_x(21, 2, 24, cfg.d_model), torch.float32)
+    want, wstate = jfn(jp, jx, cfg=cfg, use_kernel=False)
+    got, gstate = tfn(tp, tx, cfg=tcfg)
+    _close(got, want, TOL, "prefill out")
+    _state_close(gstate, wstate, TOL, "prefill")
+    jx1, tx1 = _both(_x(22, 2, 1, cfg.d_model), torch.float32)
+    want, wstate = jfn(jp, jx1, cfg=cfg, state=wstate)
+    got, gstate = tfn(tp, tx1, cfg=tcfg, state=gstate)
+    _close(got, want, TOL, "decode out")
+    _state_close(gstate, wstate, TOL, "decode")
+    assert calls == []

@@ -17,6 +17,9 @@ against the JAX package's, and decode on a mesh against one rank.
   parameter 2·lr apart: every parameter within 2·lr·1.01 of the
   reference's, and the mean difference under lr / 100 (measured: 5.7e-7
   to 6.5e-7, lr / 100 = 3e-6).
+- rwkv6-3b's LoRA interpolation weights at full width on (1, 4) against
+  one rank, f32 and bf16: the rounding of each rank's bf16 partial sum
+  (:func:`test_lora_combine_on_a_mesh_rounds_each_partial_sum`).
 - The prefill at (1, 4), where the smoke model's 2 kv heads do not
   divide the model axis (a rank projects its head_dim slice of them and
   all-gathers it), against the one-rank port (1e-5) and the reference's
@@ -229,6 +232,35 @@ def test_decode_on_a_mesh_matches_one_rank(cells, case):
     else:
         assert k.startswith("(Shard(dim=1)"), k      # batch over data
     assert split["hd" if name.startswith("hd") else "heads"] in k, k
+
+
+def test_lora_combine_on_a_mesh_rounds_each_partial_sum(cells):
+    """Why rwkv6-3b's bf16 ``train_cell`` step at (1, 4) stands further
+    from one rank's than the other archs' steps do: the Finch LoRA's
+    interpolation weights (``recurrent._lora_mu``, full width, LoRA width
+    160, 40 a rank).  In f32 the mesh's equal one rank's within 1e-6 of
+    the largest.  In bf16 each rank's partial product is rounded before
+    the all-reduce sums the four (as the JAX package's partitioned dot
+    rounds its partial results), so the mesh's weights carry twice one
+    rank's rounding error against the sum of the same bf16 operands'
+    products (measured here: a mean of 3.7e-4 against 1.8e-4; held at
+    1.5 times), and every element stays within the bound of those
+    roundings, (tp + 1) u of the partials' absolute sum plus u |mu| (u =
+    2^-8; measured: half of it), which a dropped or misplaced partial
+    sum passes."""
+    _, world, _, _, _ = cells
+    got = world["lora_combine_1x4"]
+    one32 = got["one_f32"]
+    np.testing.assert_allclose(got["mesh_f32"], one32, rtol=0,
+                               atol=1e-6 * np.abs(one32).max())
+    exact = got["exact_bf16"]
+    mesh_err = np.abs(got["mesh_bf16"] - exact)
+    one_err = np.abs(got["one_bf16"] - exact)
+    assert mesh_err.mean() >= 1.5 * one_err.mean()
+    u = 2.0 ** -8
+    bound = (got["tp"] + 1) * u * got["partials_abs"] \
+        + u * np.abs(exact)
+    assert (mesh_err <= bound).all()
 
 
 def test_prefill_where_kv_heads_do_not_divide_the_model_axis(cells):

@@ -334,6 +334,11 @@ def sharded_one(tcfg, np_tree):
         torch.from_numpy(np.array(a)) for a in tree_leaves(np_tree)]))
 
 
+def arange_result(rank, world):
+    """A rank's result holding a tensor (``spawn_world``'s rank results)."""
+    return {"rank": rank, "t": torch.arange(1000, dtype=torch.float32)}
+
+
 def compress_two(rank, world, xs):
     """``compressed_allreduce`` of rank r's row of ``xs`` over 'data'."""
     from torch.distributed.device_mesh import init_device_mesh
@@ -384,6 +389,58 @@ def train_cell_runs(mesh, leaves, batch, shape):
         out[mode] = (m["loss"].item(), m["grad_norm"].item(),
                      [full_tensor(t).numpy() for t in tree_leaves(w)])
     return out
+
+
+def lora_combine(mesh, tokens: int = 64):
+    """rwkv6-3b's LoRA interpolation weights (``recurrent._lora_mu``) at
+    full width (d 2560, a LoRA width of 160: 40 a rank at (1, 4)) on 1 x
+    ``tokens`` rows, on ``mesh`` and on one rank, in f32 and bf16; and,
+    for the bf16 ones, the sum that the same bf16 operands' products make
+    without rounding (each rank's partial and their sum in f32) and the
+    bound of the mesh's roundings (each rank's partial rounded to bf16,
+    then tp - 1 bf16 additions, then mu_base added: within
+    ``(tp + 1) u`` of the partials' absolute sum plus ``u |mu|``, u =
+    2^-8).  Whole tensors on every rank."""
+    from repro_torch.models import init_params, recurrent
+    from repro_torch.models.base import Params, partition_specs
+    from repro_torch.models.layers import _w
+    from repro_torch.models.transformer import local_params
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.layout import Layout, mark, shard_of
+    from repro_torch.sharding.specs import logical_rules
+    cfg = tconfigs.get_config("rwkv6-3b")
+    tm = recurrent.rwkv6_struct(cfg)["tm"]
+    struct = {n: tm[n] for n in ("mu_base", "lora_a", "lora_b")}
+    lay = Layout(mesh, batch=False, seq=True)
+    mine = local_params(init_params(
+        struct, torch.Generator().manual_seed(3), device="cpu", mesh=mesh,
+        specs=partition_specs(struct, logical_rules(cfg, mesh))))
+    whole = init_params(struct, torch.Generator().manual_seed(3),
+                        device="cpu")
+    x = torch.randn((1, tokens, cfg.d_model),
+                    generator=torch.Generator().manual_seed(4))
+    def cast(p, dt):             # keeps each shard's mesh marks
+        out = Params({n: getattr(p, n).to(dt) for n in struct})
+        for n in struct:
+            mark(getattr(out, n), shard_of(getattr(p, n)))
+        return out
+
+    out = {"tp": lay.tp}
+    with torch.inference_mode():
+        for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            out[f"one_{name}"] = recurrent._lora_mu(
+                Params({n: t.to(dt) for n, t in whole.items()}), x.to(dt),
+                None).float()
+            out[f"mesh_{name}"] = recurrent._lora_mu(
+                cast(mine, dt), x.to(dt), lay).float()
+        # the bf16 operands' partial products, unrounded
+        p = cast(mine, torch.bfloat16)
+        lx = torch.tanh(x.to(torch.bfloat16) @ _w(p, "lora_a", lay)).float()
+        part = torch.einsum("bsl,nld->nbsd", lx, _w(p, "lora_b", lay).float())
+        out["exact_bf16"] = comm.all_reduce(part, lay.model) + _w(
+            p, "mu_base", lay).float()[:, None, None, :]
+        out["partials_abs"] = comm.all_reduce(part.abs(), lay.model)
+    return {k: v if k == "tp" else v.numpy() for k, v in out.items()}
 
 
 def cells_world(rank, world, cases, tokens, seed, train):
@@ -438,6 +495,7 @@ def cells_world(rank, world, cases, tokens, seed, train):
     leaves, batch, shape = train
     mesh = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
     out["train_1x4"] = train_cell_runs(mesh, *train)
+    out["lora_combine_1x4"] = lora_combine(mesh)
     pcfg = prefill_config("llama3.2-1b", smoke=True, mesh=mesh,
                           batch=shape.global_batch).replace(attn_dtype="f32")
     model = sharded(pcfg, mesh, leaves)
