@@ -1,0 +1,9 @@
+"""Layer: the device (H100).  The share of the traced window in which no
+kernel, copy or fill runs on the card: the window less the union of the
+device operations' intervals (%)."""
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
