@@ -29,6 +29,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs import SHAPES, Shape, get_config
 from repro_torch.models import (ModelConfig, Transformer, cache_struct,
                                 decode_step, forward, loss_fn, model_struct)
@@ -94,7 +95,7 @@ def prefill(params: Transformer, cfg: ModelConfig, batch: dict):
     attention layers, conv/h for RG-LRU, tm_shift/wkv/cm_shift for RWKV).
     On a mesh ``batch`` is this rank's rows and both come back as
     DTensors (see :func:`~repro_torch.models.transformer.forward`)."""
-    with torch.inference_mode():
+    with tracing.span("prefill"), torch.inference_mode():
         logits, _, caches = forward(params, cfg, batch,
                                     return_cache=cfg.is_decoder)
     return logits, caches

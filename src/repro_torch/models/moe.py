@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.sharding import comm
 from repro_torch.sharding.layout import seq_gather, tp_sharded
 
@@ -118,11 +119,18 @@ def dispatch(params, x, cfg: ModelConfig, lay=None):
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
     xg = x if S > 1 else x.reshape(1, B, d)              # [G, T, d]
-    C = _capacity(xg.shape[1], cfg)
-    gates_all, gates, eidx = route(params, xg, cfg, lay)
-    groups = [_dispatch_group(xt, g, e, C, E, k)
-              for xt, g, e in zip(xg, gates, eidx)]
-    ex_in = torch.stack([g[0] for g in groups]).reshape(len(groups), E, C, d)
+    G, T = xg.shape[:2]
+    C = _capacity(T, cfg)
+    with tracing.span("moe.route"):
+        gates_all, gates, eidx = route(params, xg, cfg, lay)
+    with tracing.span("moe.dispatch"):
+        groups = [_dispatch_group(xt, g, e, C, E, k)
+                  for xt, g, e in zip(xg, gates, eidx)]
+        ex_in = torch.stack([g[0] for g in groups]).reshape(G, E, C, d)
+        tracing.count("moe.slots", G * T * k)
+        if tracing.counting():
+            dest = torch.stack([g[1] for g in groups])
+            tracing.count("moe.dropped", (dest == E * C).sum())
     return ex_in, [g[1:] for g in groups], gates_all, eidx, C
 
 
@@ -138,29 +146,32 @@ def moe(params, x, cfg: ModelConfig, lay=None):
     G, T = ex_in.shape[0], (S if S > 1 else B)
 
     ep = lay is not None and tp_sharded(params.w_gate, 0)
-    if ep:                    # this rank's experts only
-        n = E // lay.tp
-        lo = lay.tp_rank * n
-        ex_in = ex_in[:, lo:lo + n]
-    w_gate = _w(params, "w_gate", lay).to(x.dtype)
-    w_up = _w(params, "w_up", lay).to(x.dtype)
-    w_down = _w(params, "w_down", lay).to(x.dtype)
-    h = F.silu(torch.einsum("gecd,edf->gecf", ex_in, w_gate)) \
-        * torch.einsum("gecd,edf->gecf", ex_in, w_up)
-    ex_out = torch.einsum("gecf,efd->gecd", h, w_down)
-    if ep:                    # the other ranks' experts add nothing here
-        ex_out = torch.cat([
-            ex_out.new_zeros((G, lo, C, d)), ex_out,
-            ex_out.new_zeros((G, E - lo - n, C, d))], dim=1)
-    ex_out = ex_out.reshape(G, E * C, d)
+    with tracing.span("moe.experts"):
+        if ep:                # this rank's experts only
+            n = E // lay.tp
+            lo = lay.tp_rank * n
+            ex_in = ex_in[:, lo:lo + n]
+        w_gate = _w(params, "w_gate", lay).to(x.dtype)
+        w_up = _w(params, "w_up", lay).to(x.dtype)
+        w_down = _w(params, "w_down", lay).to(x.dtype)
+        h = F.silu(torch.einsum("gecd,edf->gecf", ex_in, w_gate)) \
+            * torch.einsum("gecd,edf->gecf", ex_in, w_up)
+        ex_out = torch.einsum("gecf,efd->gecd", h, w_down)
+        if ep:                # the other ranks' experts add nothing here
+            ex_out = torch.cat([
+                ex_out.new_zeros((G, lo, C, d)), ex_out,
+                ex_out.new_zeros((G, E - lo - n, C, d))], dim=1)
+        ex_out = ex_out.reshape(G, E * C, d)
 
-    out = torch.stack([_combine_group(eo, *slot, T)
-                       for eo, slot in zip(ex_out, slots)])
-    out = out.reshape(B, S, d)
+    with tracing.span("moe.combine"):
+        out = torch.stack([_combine_group(eo, *slot, T)
+                           for eo, slot in zip(ex_out, slots)])
+        out = out.reshape(B, S, d)
 
     if cfg.n_shared_experts:
-        out = out + mlp_partial(params.shared, x.reshape(B * S, d),
-                                lay).reshape(B, S, d)
+        with tracing.span("moe.shared"):
+            out = out + mlp_partial(params.shared, x.reshape(B * S, d),
+                                    lay).reshape(B, S, d)
     if lay is not None:
         out = shard_act(out, lay)
 

@@ -28,6 +28,7 @@ import torch
 import torch.utils.checkpoint as ckpt
 from torch import nn
 
+from repro_torch import tracing
 from repro_torch.sharding import comm
 from repro_torch.sharding.layout import Layout, fetch, mark, seq_rows
 
@@ -304,31 +305,39 @@ def _apply_layer(lp, x, *, cfg: ModelConfig, kind: str, is_moe: bool,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(lp.ln1, x, cfg.norm_eps, lay)
     if kind == RWKV:
-        out, tm_state = rwkv6_time_mix(
-            lp.tm, h, cfg=cfg,
-            state=None if cache is None else {"shift": cache["tm_shift"],
-                                              "wkv": cache["wkv"]}, lay=lay)
+        with tracing.span("time_mix"):
+            out, tm_state = rwkv6_time_mix(
+                lp.tm, h, cfg=cfg,
+                state=None if cache is None else {
+                    "shift": cache["tm_shift"], "wkv": cache["wkv"]},
+                lay=lay)
         x = x + out
         h2 = rmsnorm(lp.ln2, x, cfg.norm_eps, lay)
-        out2, cm_state = rwkv6_channel_mix(
-            lp.cm, h2,
-            state=None if cache is None else {"shift": cache["cm_shift"]},
-            lay=lay)
+        with tracing.span("channel_mix"):
+            out2, cm_state = rwkv6_channel_mix(
+                lp.cm, h2,
+                state=None if cache is None else {"shift": cache["cm_shift"]},
+                lay=lay)
         return x + out2, {"tm_shift": tm_state["shift"],
                           "wkv": tm_state["wkv"],
                           "cm_shift": cm_state["shift"]}, aux
     if kind == RECURRENT:
-        out, new_cache = rglru(lp.rglru, h, cfg=cfg, state=cache, lay=lay)
+        with tracing.span("rglru"):
+            out, new_cache = rglru(lp.rglru, h, cfg=cfg, state=cache,
+                                   lay=lay)
     else:
-        out, new_cache = attention(lp.attn, h, cfg=cfg, kind=kind,
-                                   positions=positions, kv_cache=cache,
-                                   cache_pos=cache_pos, lay=lay)
+        with tracing.span("attention"):
+            out, new_cache = attention(lp.attn, h, cfg=cfg, kind=kind,
+                                       positions=positions, kv_cache=cache,
+                                       cache_pos=cache_pos, lay=lay)
     x = x + out
     h2 = rmsnorm(lp.ln2, x, cfg.norm_eps, lay)
     if is_moe:
-        out2, aux = moe(lp.ffn, h2, cfg, lay)
+        with tracing.span("moe"):
+            out2, aux = moe(lp.ffn, h2, cfg, lay)
     else:
-        out2 = mlp(lp.ffn, h2, lay)
+        with tracing.span("mlp"):
+            out2 = mlp(lp.ffn, h2, lay)
     return x + out2, new_cache, aux
 
 
@@ -370,7 +379,8 @@ def _forward(params: Transformer, cfg: ModelConfig, batch: dict, lay,
     """:func:`forward` on local tensors: on a mesh the logits are this
     rank's [B/data, S, V/model] and the caches its shards."""
     S = _seq_len(cfg, batch)
-    x = _embed(params, cfg, batch, lay)
+    with tracing.span("embed"):
+        x = _embed(params, cfg, batch, lay)
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -398,12 +408,14 @@ def _forward(params: Transformer, cfg: ModelConfig, batch: dict, lay,
                 for j, c in cs.items():
                     per_pos[j].append(c)
         if return_cache:
-            caches.append({j: {name: torch.stack([c[name] for c in cs])
-                               for name in cs[0]}
-                           for j, cs in per_pos.items()})
+            with tracing.span("cache_stack"):
+                caches.append({j: {name: torch.stack([c[name] for c in cs])
+                                   for name in cs[0]}
+                               for j, cs in per_pos.items()})
 
-    x = rmsnorm(params.final_norm, x, cfg.norm_eps, lay)
-    logits = lm_logits(params.head, params.embed, x, cfg, lay)
+    with tracing.span("head"):
+        x = rmsnorm(params.final_norm, x, cfg.norm_eps, lay)
+        logits = lm_logits(params.head, params.embed, x, cfg, lay)
     return logits, aux_total, caches
 
 

@@ -275,6 +275,49 @@ def test_smoke_moe_model_on_card_matches_cpu(cuda, arch):
     assert torch.equal(out, again)
 
 
+def test_smoke_moe_prefill_traced_on_card(cuda):
+    """Spans and counters on the card: no read back to the host while the
+    prefill runs (the same synchronizing calls as with tracing off), the
+    same logits, and the drop count the CPU's run gives."""
+    import contextlib
+    import warnings
+
+    from repro_torch import tracing
+    cfg = get_config("deepseek-moe-16b", smoke=True).replace(
+        capacity_factor=0.5)
+    params = init_params(model_struct(cfg), torch.Generator().manual_seed(3),
+                         device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, size=(2, 48)).astype(np.int32))
+    gpu_model = Transformer(cfg, tree_map(lambda t: t.to(cuda), params))
+    with tracing.recording(spans=False, counters=True) as cpu_rec:
+        prefill(Transformer(cfg, params), cfg, {"tokens": toks})
+
+    def run(**kw):
+        # the recording reads its counters back once, when it ends: after
+        # the prefill, outside the calls counted here
+        with (tracing.recording(**kw) if kw else contextlib.nullcontext()) \
+                as rec:
+            batch = {"tokens": toks.to(cuda)}
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    out = prefill(gpu_model, cfg, batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [w for w in caught if "synchroniz" in str(w.message)]
+        return out[0], len(syncs), rec
+
+    want, off_syncs, _ = run()
+    got, on_syncs, rec = run(spans=True, counters=True)
+    assert on_syncs == off_syncs
+    assert torch.equal(got, want)
+    assert rec.counters == cpu_rec.counters and rec.counters["moe.dropped"]
+    assert {s.name for s in rec.spans} >= {"prefill", "moe", "moe.dispatch"}
+
+
 def _randn(gen, shape, device):
     return torch.randn(shape, generator=gen, device=device)
 
