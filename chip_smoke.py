@@ -671,20 +671,19 @@ def moe_layer_check(ffn, cfg, shape, dev, *, Params, moe_mod) -> dict:
         runs[where.type] = {
             "wall": time.perf_counter() - t0, "out": out.cpu(),
             "aux": aux.item(), "eidx": eidx.cpu(), "C": C,
-            "slots": [tuple(a.cpu() for a in g) for g in slots]}
+            "slots": type(slots)(*(a.cpu() for a in slots))}
         del params, t, xs, out
     card, host = runs[dev.type], runs["cpu"]
     E, C = cfg.n_experts, host["C"]
+    cs, hs = card["slots"], host["slots"]
     same = {
         "eidx": torch.equal(card["eidx"], host["eidx"]),
-        "dest": all(torch.equal(a[0], b[0])
-                    for a, b in zip(card["slots"], host["slots"])),
-        "kept": all(torch.equal(a[0] < E * C, b[0] < E * C)
-                    for a, b in zip(card["slots"], host["slots"])),
-        "src_token": all(torch.equal(a[1], b[1])
-                         for a, b in zip(card["slots"], host["slots"]))}
-    dropped = sum(int((g[0] == E * C).sum()) for g in host["slots"])
-    n_slots = sum(g[0].numel() for g in host["slots"])
+        "dest": torch.equal(cs.dest, hs.dest),
+        "kept": torch.equal(cs.dest < E * C, hs.dest < E * C),
+        "src_token": torch.equal(cs.src_token, hs.src_token),
+        "by_token": torch.equal(cs.by_token, hs.by_token)}
+    dropped = int((hs.dest == E * C).sum())
+    n_slots = hs.dest.numel()
     out_max = host["out"].abs().max().item()
     return {"same": same, "C": C, "dropped": dropped, "slots": n_slots,
             "out_err": max_err(card["out"], host["out"]), "out_max": out_max,

@@ -11,15 +11,19 @@ Tokens diverge into expert paths and reconverge at the combine:
 Dispatch is grouped (group = sequence; the whole batch is one group in
 decode): routing, sort, scatter and combine are local to a group.  The JAX
 package vmaps the group functions and pins the group axis to the data
-axes (``shard_g``); on one card the groups run in a loop and the expert
-products take all groups at once.  On a mesh the groups are this rank's
-batch rows, so ``shard_g``'s layout holds by construction: each rank
-routes its rows' every position, runs its experts (expert-parallel on
-'model' when they divide, else its ff columns of every expert), and the
-partial sums meet in ``shard_act``.  Supports Mixtral-style top-k over E experts and
+axes (``shard_g``); here one pass takes every group at once (one sort of
+the key group*E + expert, one gather into the expert-path buffers, k
+gathers in the combine), so the operations a layer launches do not grow
+with the number of groups.  On a mesh the groups are this rank's batch
+rows, so ``shard_g``'s layout holds by construction: each rank routes its
+rows' every position, runs its experts (expert-parallel on 'model' when
+they divide, else its ff columns of every expert), and the partial sums
+meet in ``shard_act``.  Supports Mixtral-style top-k over E experts and
 DeepSeek-style shared + fine-grained routed experts.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -59,47 +63,84 @@ def _top_k(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _dispatch_group(xt, gates, eidx, C: int, E: int, k: int):
-    """One group: xt [T, d]; gates/eidx [T, k].  Returns the expert-path
-    buffer [E*C, d], each slot's destination row ``dest`` [T*k] (``E*C``
-    for a dropped slot), its source token [T*k] and its gate [T*k] (0 for
-    a dropped slot), in sorted-slot order."""
-    T, d = xt.shape
-    flat_e = eidx.reshape(-1)                            # [T*k]
-    order = torch.argsort(flat_e, stable=True)           # local sort
-    sorted_e = flat_e[order]
-    counts = torch.zeros(E, dtype=flat_e.dtype, device=xt.device) \
-        .scatter_add_(0, flat_e, torch.ones_like(flat_e))   # bincount
+class Slots(NamedTuple):
+    """The routed slots of every group: ``dest`` (the slot's row of its
+    group's [E*C] expert-path buffer, ``E*C`` when dropped), ``src_token``
+    (its token in the group) and ``slot_gate`` (its gate, 0 when dropped),
+    each [G, T*k] in sorted-slot order (by expert, stable), as the JAX
+    package's ``_dispatch_group`` gives them a group; and ``by_token``
+    [G, T, k], each token's k positions in that order, ascending: the
+    order of ascending expert in which the combine adds its slots."""
+    dest: torch.Tensor
+    src_token: torch.Tensor
+    slot_gate: torch.Tensor
+    by_token: torch.Tensor
+
+
+def _dispatch(xg, gates, eidx, C: int, E: int):
+    """Every group at once: xg [G, T, d]; gates/eidx [G, T, k].  Returns
+    the expert-path inputs [G, E, C, d] and the :class:`Slots`.
+
+    One stable sort of the key ``g*E + e`` over all G*T*k slots orders
+    each group's slots as a stable sort of the group's own experts does;
+    each group holds T*k of them, so the global position less the global
+    offset of the slot's key is its rank in its group's expert."""
+    G, T, d = xg.shape
+    k = eidx.shape[-1]
+    n = T * k
+    dev = xg.device
+    key = (eidx + torch.arange(0, G * E, E, device=dev)[:, None, None]) \
+        .reshape(-1)                                     # [G*T*k]
+    sorted_key, order = torch.sort(key, stable=True)
+    counts = torch.zeros(G * E, dtype=key.dtype, device=dev) \
+        .scatter_add_(0, key, torch.ones_like(key))     # bincount
     offsets = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(T * k, device=xt.device) - offsets[sorted_e]
+    pos = torch.arange(G * n, device=dev)
+    rank = pos - offsets[sorted_key]
     kept = rank < C                                      # drop overflow
-    dest = torch.where(kept, sorted_e * C + rank,
-                       torch.full_like(rank, E * C))
-    src_token = order // k
-    # one spare row takes the dropped slots' writes, then is cut off
-    buf = torch.zeros((E * C + 1, d), dtype=xt.dtype, device=xt.device)
-    buf[dest] = xt[src_token]
-    slot_gate = (gates.reshape(-1)[order] * kept).to(xt.dtype)
-    return buf[:E * C], dest, src_token, slot_gate
+    dest = torch.where(kept, sorted_key % E * C + rank, E * C)
+    token = order // k                                   # row of [G*T]
+    slot_gate = (gates.reshape(-1)[order] * kept).to(xg.dtype)
+    # each buffer row's token; empty rows read a zero row, and the dropped
+    # slots write a spare entry that is cut off
+    row_src = torch.full((G * E * C + 1,), G * T, dtype=order.dtype,
+                         device=dev).scatter_(
+        0, torch.where(kept, sorted_key * C + rank, G * E * C), token)
+    ex_in = F.pad(xg.reshape(G * T, d), (0, 0, 0, 1))[row_src[:G * E * C]]
+    # each token's positions, ascending: the inverse of the sort by a
+    # scatter, a slot's place among its token's k, and a scatter to it
+    inv = torch.empty_like(pos).scatter_(0, order, pos % n).view(G * T, k)
+    place = (inv[:, :, None] > inv[:, None, :]).sum(-1)
+    by_token = torch.empty_like(inv).scatter_(1, place, inv)
+    slots = Slots(dest.view(G, n), (token % T).view(G, n),
+                  slot_gate.view(G, n), by_token.view(G, T, k))
+    return ex_in.view(G, E, C, d), slots
 
 
-def _combine_group(ex_out, dest, src_token, slot_gate, T: int):
-    """ex_out [E*C, d] -> [T, d].  A dropped slot's gate is 0, so its
-    clamped gather contributes nothing.
+def _combine(ex_out, slots: Slots):
+    """ex_out [G, E*C, d] -> [G, T, d].  A dropped slot's gate is 0, so
+    its clamped gather (its group's last row) contributes nothing.
 
     Each token's k slots are summed in their sorted order (ascending
-    expert), the order in which the JAX package's scatter-add adds them,
-    and with no atomics: an ``index_add_`` on the card adds a token's
+    expert), the order in which the JAX package's scatter-add adds them:
+    k gathers of one row a token, each times its gate, added one after
+    another, with no atomics (an ``index_add_`` on the card adds a token's
     contributions in whatever order its atomics land, so a prefill's
-    logits would differ from run to run."""
-    rows = ex_out[dest.clamp(max=ex_out.shape[0] - 1)]
-    contrib = rows * slot_gate[:, None]
-    per_token = contrib[torch.argsort(src_token, stable=True)] \
-        .reshape(T, -1, contrib.shape[-1])                # [T, k, d]
-    out = per_token[:, 0]
-    for j in range(1, per_token.shape[1]):
-        out = out + per_token[:, j]
-    return out
+    logits would differ from run to run)."""
+    G, EC, d = ex_out.shape
+    T, k = slots.by_token.shape[1:]
+    at = slots.by_token.view(G, T * k)
+    # [k, G*T]: the j-th slot of every token, contiguous, so that each
+    # gather takes whole rows at once
+    rows = (slots.dest.gather(1, at).clamp_(max=EC - 1)
+            + torch.arange(0, G * EC, EC, device=ex_out.device)[:, None]) \
+        .view(G * T, k).t().contiguous()
+    gate = slots.slot_gate.gather(1, at).view(G * T, k).t().contiguous()
+    flat = ex_out.reshape(G * EC, d)
+    out = flat[rows[0]] * gate[0, :, None]
+    for j in range(1, k):
+        out = out + flat[rows[j]] * gate[j, :, None]
+    return out.view(G, T, d)
 
 
 def route(params, xg, cfg: ModelConfig, lay=None):
@@ -114,8 +155,8 @@ def route(params, xg, cfg: ModelConfig, lay=None):
 
 def dispatch(params, x, cfg: ModelConfig, lay=None):
     """Routing and dispatch of x [B, S, d]: the groups' expert-path inputs
-    [G, E, C, d], each group's (dest, src_token, slot_gate), the router's
-    (gates_all, eidx) and C."""
+    [G, E, C, d], their :class:`Slots`, the router's (gates_all, eidx) and
+    C."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
     xg = x if S > 1 else x.reshape(1, B, d)              # [G, T, d]
@@ -124,14 +165,11 @@ def dispatch(params, x, cfg: ModelConfig, lay=None):
     with tracing.span("moe.route"):
         gates_all, gates, eidx = route(params, xg, cfg, lay)
     with tracing.span("moe.dispatch"):
-        groups = [_dispatch_group(xt, g, e, C, E, k)
-                  for xt, g, e in zip(xg, gates, eidx)]
-        ex_in = torch.stack([g[0] for g in groups]).reshape(G, E, C, d)
+        ex_in, slots = _dispatch(xg, gates, eidx, C, E)
         tracing.count("moe.slots", G * T * k)
         if tracing.counting():
-            dest = torch.stack([g[1] for g in groups])
-            tracing.count("moe.dropped", (dest == E * C).sum())
-    return ex_in, [g[1:] for g in groups], gates_all, eidx, C
+            tracing.count("moe.dropped", (slots.dest == E * C).sum())
+    return ex_in, slots, gates_all, eidx, C
 
 
 def moe(params, x, cfg: ModelConfig, lay=None):
@@ -143,7 +181,7 @@ def moe(params, x, cfg: ModelConfig, lay=None):
     B, S, d = x.shape
     E = cfg.n_experts
     ex_in, slots, gates_all, eidx, C = dispatch(params, x, cfg, lay)
-    G, T = ex_in.shape[0], (S if S > 1 else B)
+    G = ex_in.shape[0]
 
     ep = lay is not None and tp_sharded(params.w_gate, 0)
     with tracing.span("moe.experts"):
@@ -164,9 +202,7 @@ def moe(params, x, cfg: ModelConfig, lay=None):
         ex_out = ex_out.reshape(G, E * C, d)
 
     with tracing.span("moe.combine"):
-        out = torch.stack([_combine_group(eo, *slot, T)
-                           for eo, slot in zip(ex_out, slots)])
-        out = out.reshape(B, S, d)
+        out = _combine(ex_out, slots).reshape(B, S, d)
 
     if cfg.n_shared_experts:
         with tracing.span("moe.shared"):

@@ -263,9 +263,9 @@ def test_smoke_moe_model_on_card_matches_cpu(cuda, arch):
                                             small)
     _, c_slots, _, c_eidx, C = moe.dispatch(getattr(clp, "0").ffn, x, small)
     assert torch.equal(g_eidx.cpu(), c_eidx)
-    for g, c in zip(g_slots, c_slots):
-        assert torch.equal(g[0].cpu(), c[0]) and torch.equal(g[1].cpu(), c[1])
-    assert any(bool((c[0] == cfg.n_experts * C).any()) for c in c_slots)
+    assert torch.equal(g_slots.dest.cpu(), c_slots.dest)
+    assert torch.equal(g_slots.src_token.cpu(), c_slots.src_token)
+    assert bool((c_slots.dest == cfg.n_experts * C).any())
     out, _ = moe.moe(getattr(lp, "0").ffn, x.to(cuda), small)
     want_out, _ = moe.moe(getattr(clp, "0").ffn, x, small)
     np.testing.assert_allclose(out.cpu().numpy(), want_out.numpy(),
@@ -316,6 +316,57 @@ def test_smoke_moe_prefill_traced_on_card(cuda):
     assert torch.equal(got, want)
     assert rec.counters == cpu_rec.counters and rec.counters["moe.dropped"]
     assert {s.name for s in rec.spans} >= {"prefill", "moe", "moe.dispatch"}
+
+
+def test_smoke_moe_prefill_bits_and_batched_dispatch_on_card(cuda):
+    """The smoke deepseek prefill on the card gives the same bits with
+    tracing off and on and on a second run (the combine adds each token's
+    slots in one fixed order, with no atomics); and the dispatch of 16
+    groups at once, with drops, gives the CPU's destinations and source
+    tokens slot for slot."""
+    from repro_torch import tracing
+    from repro_torch.models import moe
+    from repro_torch.models.base import Params
+    cfg = get_config("deepseek-moe-16b", smoke=True).replace(
+        capacity_factor=0.5)
+    params = init_params(model_struct(cfg), torch.Generator().manual_seed(5),
+                         device="cpu")
+    gpu_model = Transformer(cfg, tree_map(lambda t: t.to(cuda), params))
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, size=(16, 32))).to(cuda)
+
+    def run(**kw):
+        if not kw:
+            return prefill(gpu_model, cfg, {"tokens": toks})
+        with tracing.recording(**kw):
+            return prefill(gpu_model, cfg, {"tokens": toks})
+
+    want, want_caches = run()
+    for kw in ({}, {"spans": True, "counters": True}, {}):
+        got, caches = run(**kw)
+        assert torch.equal(got, want)
+        for a, b in zip(caches, want_caches):
+            for j in a:
+                for name in a[j]:
+                    assert torch.equal(a[j][name], b[j][name]), (j, name)
+
+    # the router rounded to multiples of 2^-10 and the input drawn from
+    # {-1, 0, 1}: its logits are exact in f32 on either device, so the
+    # routing is the same and a difference would be the dispatch's
+    tree = init_params(moe.moe_struct(cfg), torch.Generator().manual_seed(6),
+                       device="cpu")
+    tree["router"] = torch.round(tree["router"] * 1024) / 1024
+    x = torch.randint(-1, 2, (16, 24, cfg.d_model),
+                      generator=torch.Generator().manual_seed(6)).float()
+    _, c_slots, _, c_eidx, C = moe.dispatch(Params(tree), x, cfg)
+    _, g_slots, _, g_eidx, _ = moe.dispatch(
+        Params(tree_map(lambda t: t.to(cuda), tree)), x.to(cuda), cfg)
+    assert torch.equal(g_eidx.cpu(), c_eidx)
+    assert c_slots.dest.shape == (16, 24 * cfg.experts_per_token)
+    assert torch.equal(g_slots.dest.cpu(), c_slots.dest)
+    assert torch.equal(g_slots.src_token.cpu(), c_slots.src_token)
+    assert torch.equal(g_slots.by_token.cpu(), c_slots.by_token)
+    assert bool((c_slots.dest == cfg.n_experts * C).any())
 
 
 def _randn(gen, shape, device):

@@ -2,7 +2,8 @@
 deepseek-moe-16b) against the JAX package at smoke size: routing, drops
 and dispatch order identical; the layer's output, its load-balance loss,
 the models' forward logits and decode steps within 2e-4 in f32; the serve
-loop's tokens equal; configs and parameter counts equal.
+loop's tokens equal; configs and parameter counts equal; a layer's
+operators do not grow with its routing groups.
 
 The weights are drawn by the JAX package and handed over as numpy arrays
 (``params_from_jax``); inputs come from numpy with a fixed seed.  The
@@ -10,6 +11,7 @@ tolerance 2e-4 is that of the JAX package's own flash-vs-reference model
 test (``tests/test_kernels.py``).  The machine with the card has no JAX:
 there this module skips as a whole."""
 import dataclasses
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -29,6 +31,7 @@ from repro_torch.launch import steps as tsteps
 from repro_torch.models import moe as tmoe
 from repro_torch.models.base import Params
 from repro_torch.models.convert import params_from_jax, tensors_from_jax
+from tests.test_torch_tracing import Ops
 
 TOL = 2e-4
 ARCHS = ("mixtral-8x7b", "deepseek-moe-16b")
@@ -73,8 +76,8 @@ def _jax_dispatch(jp, x, cfg):
 
 @pytest.mark.parametrize("capacity_factor", [1.25, 0.5],
                          ids=["default", "drops"])
-@pytest.mark.parametrize("shape", [(2, 16), (6, 1)], ids=["grouped",
-                                                          "decode"])
+@pytest.mark.parametrize("shape", [(2, 16), (6, 1), (16, 8)],
+                         ids=["grouped", "decode", "many-groups"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_moe_routes_drops_and_combines_as_jax(arch, shape, capacity_factor):
     jcfg, tcfg, jp, tp = _moe_layer(arch, 0, capacity_factor=capacity_factor)
@@ -86,16 +89,20 @@ def test_moe_routes_drops_and_combines_as_jax(arch, shape, capacity_factor):
     _, slots, gates_all, t_eidx, t_C = tmoe.dispatch(tp, xt, tcfg)
     assert t_C == C
     np.testing.assert_array_equal(t_eidx.numpy(), eidx)
-    E = tcfg.n_experts
-    dropped = 0
-    for g, (t_dest, t_src, t_gate) in enumerate(slots):
-        np.testing.assert_array_equal(t_dest.numpy(), dest[g])
-        np.testing.assert_array_equal(t_src.numpy(), src[g])
-        np.testing.assert_array_equal(t_dest.numpy() < E * C,
-                                      dest[g] < E * C)      # kept mask
-        np.testing.assert_allclose(t_gate.numpy(), sgate[g], rtol=TOL,
-                                   atol=TOL)
-        dropped += int((dest[g] == E * C).sum())
+    # one pass over every group: the JAX package's vmapped group function,
+    # slot for slot
+    E, k = tcfg.n_experts, tcfg.experts_per_token
+    G = dest.shape[0]
+    np.testing.assert_array_equal(slots.dest.numpy(), dest)
+    np.testing.assert_array_equal(slots.src_token.numpy(), src)
+    np.testing.assert_array_equal(slots.dest.numpy() < E * C,
+                                  dest < E * C)             # kept mask
+    np.testing.assert_allclose(slots.slot_gate.numpy(), sgate, rtol=TOL,
+                               atol=TOL)
+    # each token's slots in the order a stable sort by token gives them
+    np.testing.assert_array_equal(slots.by_token.numpy(),
+                                  _by_token(src, k).reshape(G, -1, k))
+    dropped = int((dest == E * C).sum())
     if capacity_factor < 1:
         assert dropped > 0, "the small capacity factor must force drops"
 
@@ -110,23 +117,51 @@ def test_moe_routes_drops_and_combines_as_jax(arch, shape, capacity_factor):
     assert gates_all.shape == ((B, S, E) if S > 1 else (1, B, E))
 
 
+def _by_token(src, k):
+    """Each group's slot positions by token: a stable argsort of its
+    source tokens, [G, T*k]."""
+    return np.stack([np.argsort(s, kind="stable") for s in src]) \
+        .reshape(len(src), -1)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_combine_adds_in_the_reference_order(arch):
-    # each token's slots summed in sorted order: bit for bit the JAX
-    # package's scatter-add, drops included
+    # every group's combine at once, each token's slots summed in sorted
+    # order: bit for bit the JAX package's scatter-add a group, drops
+    # included
     jcfg, tcfg, jp, _ = _moe_layer(arch, 0, capacity_factor=0.5)
-    x = _x(2, 16, jcfg.d_model, seed=4)
+    G, T, k = 2, 16, jcfg.experts_per_token
+    x = _x(G, T, jcfg.d_model, seed=4)
     C, _, dest, src, sgate = _jax_dispatch(jp, jnp.asarray(x), jcfg)
+    assert (dest == jcfg.n_experts * C).any()
     ex = np.random.default_rng(5).standard_normal(
-        (jcfg.n_experts * C, jcfg.d_model)).astype(np.float32)
-    for g in range(2):
-        want = jmoe._combine_group(jnp.asarray(ex), dest[g], src[g],
-                                   sgate[g], 16)
-        got = tmoe._combine_group(torch.from_numpy(ex),
-                                  torch.from_numpy(dest[g].copy()).long(),
-                                  torch.from_numpy(src[g].copy()).long(),
-                                  torch.from_numpy(sgate[g].copy()), 16)
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        (G, jcfg.n_experts * C, jcfg.d_model)).astype(np.float32)
+    slots = tmoe.Slots(*(torch.from_numpy(a.copy()).long()
+                         for a in (dest, src)),
+                       torch.from_numpy(sgate.copy()),
+                       torch.from_numpy(_by_token(src, k)).view(G, T, k))
+    got = tmoe._combine(torch.from_numpy(ex), slots)
+    assert got.shape == (G, T, jcfg.d_model)
+    for g in range(G):
+        want = jmoe._combine_group(jnp.asarray(ex[g]), dest[g], src[g],
+                                   sgate[g], T)
+        np.testing.assert_array_equal(got[g].numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_groups_add_no_operation(arch):
+    """One ``moe`` call dispatches the same operators at 2 groups as at 8
+    of the same length: no work is done a group, so a device launches no
+    more a group."""
+    _, tcfg, _, tp = _moe_layer(arch, 0, capacity_factor=0.5)
+    counts = []
+    for G in (2, 8):
+        x = torch.from_numpy(_x(G, 16, tcfg.d_model, seed=G))
+        with Ops() as m:
+            tmoe.moe(tp, x, tcfg)
+        counts.append(Counter(m.ops))
+    assert counts[0] == counts[1]
+    assert counts[0]["aten.sort.stable"] == 2       # the router's, the slots'
 
 
 def test_load_balance_loss_matches_jax():

@@ -30,8 +30,7 @@ TOP = {MOE: {"embed", "attention", "mlp", "moe", "cache_stack", "head"},
 MOE_PARTS = {"moe.route", "moe.dispatch", "moe.experts", "moe.combine",
              "moe.shared"}
 # what counters on add to a prefill: a MoE layer's count of its drops
-COUNT_OPS = ("aten.stack.default", "aten.eq.Scalar", "aten.sum.default",
-             "aten.add_.Tensor")
+COUNT_OPS = ("aten.eq.Scalar", "aten.sum.default", "aten.add_.Tensor")
 
 
 class Ops(TorchDispatchMode):
@@ -80,7 +79,7 @@ def test_off_span_is_one_shared_noop_and_count_does_nothing():
 def test_spans_add_no_operation_and_counters_only_the_drop_count(arch):
     """Spans on dispatch the operators of tracing off, no more, and no read
     back to the host (``_local_scalar_dense``); counters on add only each
-    MoE layer's stack, compare, sum and add into the accumulator."""
+    MoE layer's compare, sum and add into the accumulator."""
     cfg, model, batch = _model(arch)
     with Ops() as off:
         prefill(model, cfg, batch)
@@ -165,8 +164,10 @@ def test_spans_are_profiler_annotations(arch):
 
 def test_moe_counters_equal_a_direct_count():
     """``moe.slots`` is G*T*k and ``moe.dropped`` the slots whose
-    destination is the spare row E*C, counted from ``_dispatch_group`` on
-    the same inputs; the capacity is cut so that slots are dropped."""
+    destination is the spare row E*C, which equals a direct count from the
+    router's choices on the same inputs: in each group, each expert keeps
+    C of the slots routed to it; the capacity is cut so that slots are
+    dropped."""
     cfg = prefill_config(MOE, smoke=True).replace(capacity_factor=0.5)
     gen = torch.Generator().manual_seed(3)
     params = Params(init_params(tmoe.moe_struct(cfg), gen, device="cpu"))
@@ -175,10 +176,10 @@ def test_moe_counters_equal_a_direct_count():
         _, slots, _, _, C = tmoe.dispatch(params, x, cfg)
     assert tracing.span("moe") is tracing._NULL
     E, k = cfg.n_experts, cfg.experts_per_token
-    _, gates, eidx = tmoe.route(params, x, cfg)
-    dropped = sum(int((tmoe._dispatch_group(xt, g, e, C, E, k)[1]
-                       == E * C).sum()) for xt, g, e in zip(x, gates, eidx))
-    assert dropped == sum(int((s[0] == E * C).sum()) for s in slots) > 0
+    _, _, eidx = tmoe.route(params, x, cfg)
+    dropped = sum(max(0, int((e == j).sum()) - C)
+                  for e in eidx for j in range(E))
+    assert dropped == int((slots.dest == E * C).sum()) > 0
     assert rec.counters == {"moe.slots": 3 * 20 * k, "moe.dropped": dropped}
 
 
