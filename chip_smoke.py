@@ -44,6 +44,11 @@ main paths at full width, with random weights or data drawn from a seed:
 - mixtral-8x7b at full width, 8 of its 32 layers: a bf16 prefill of
   1 x 8192 through K3 with its 4096-token window, held the same way (in
   f32 at 4 layers);
+- moonlight-16b-a3b, whole (27 layers of latent attention, 15.96 B
+  parameters): a bf16 prefill of 1 x 8192 through K3's (192, 128) build,
+  each layer's latent attention held against the reference attention on
+  the main stream's hidden state; the build alone at that shape, v a view
+  of the expansion [k_nope | v], against its plain twin;
 - gemma3-4b, minitron-4b, internlm2-20b (19.9 B parameters), internvl2-2b
   and hubert-xlarge, each whole at full width on bf16 weights drawn on the
   card one leaf at a time: a prefill of 4 x 2048 positions from the
@@ -250,6 +255,9 @@ SERVICE_PROC_WARPS = ARCHIVE_WARPS
 # hold (config_phases) cuts its own weights, beside its bf16 model.
 MIXTRAL_LAYERS = 8
 MIXTRAL_S = 8192
+# moonlight-16b-a3b (15.96 B parameters, 31.9 GB in bf16) whole at its
+# published context, one sequence
+LATENT_S = 8192
 F32_DEPTH = {"deepseek-moe-16b": 8, "mixtral-8x7b": 4, "internlm2-20b": 8}
 # one MoE layer on the card against the same layer on the CPU, in f32:
 # the largest output difference, relative to the largest output
@@ -452,6 +460,25 @@ def max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
+def latent_qkv(cfg, S: int, gen, dev, Params, expand):
+    """q, k, v of one latent-attention layer of ``cfg`` at 1 x S in bf16,
+    as ``models/mla.py`` hands them to K3: q [1, S, H, dn + dr]; k =
+    [k_nope | k_pe] and v a view of the expansion [k_nope | v] = c . W_kvb
+    (``expand``: ``mla._expand``).  Entries of q, k and v about N(0, 1),
+    as the other cases draw them."""
+    H, r = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(torch.bfloat16)
+
+    q = randn(1, S, H, dn + dr)
+    w = Params({"wkv_b": randn(r, H, dn + dv, scale=r ** -0.5)})
+    k, v = expand(w, randn(1, S, r), randn(1, S, dr), cfg)
+    return q, k, v
+
+
 def bound(flops: int, nbytes: int, dtype) -> tuple[float, str]:
     """The least time (ms) the card could take, and what bounds it."""
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -594,9 +621,19 @@ def layerwise_hold(model, cfg, ref_cfg, batch, *, L, tm, moe_mod) -> dict:
     by more than a 16-layer dense model's.  Held here instead: each layer's
     attention through K3 against the reference attention on the main
     stream's own hidden state (``attn_rel``: the largest difference over
-    the largest reference output).  Reported: the share of tokens whose
-    expert set differs between the streams at each MoE layer, and the two
-    streams' last-position logits."""
+    the largest reference output; a latent-attention layer's whole MLA).
+    Reported: the share of tokens whose expert set differs between the
+    streams at each MoE layer, and the two streams' last-position
+    logits."""
+    from repro_torch.models.base import MLA
+    from repro_torch.models.mla import mla
+
+    def attend(p, h, c, kind, positions):
+        if kind == MLA:
+            return mla(p.mla, h, cfg=c, positions=positions)[0]
+        return L.attention(p.attn, h, cfg=c, kind=kind,
+                           positions=positions)[0]
+
     cfgs = {"main": cfg, "ref": ref_cfg}
     attn_rel, flips, layer = [], {}, 0
     with torch.inference_mode():
@@ -611,12 +648,9 @@ def layerwise_hold(model, cfg, ref_cfg, batch, *, L, tm, moe_mod) -> dict:
                     p, experts = getattr(lp, str(j)), {}
                     for name, x in streams.items():
                         h = L.rmsnorm(p.ln1, x, cfg.norm_eps)
-                        a, _ = L.attention(p.attn, h, cfg=cfgs[name],
-                                           kind=kind, positions=positions)
+                        a = attend(p, h, cfgs[name], kind, positions)
                         if name == "main":
-                            want, _ = L.attention(p.attn, h, cfg=ref_cfg,
-                                                  kind=kind,
-                                                  positions=positions)
+                            want = attend(p, h, ref_cfg, kind, positions)
                             attn_rel.append(max_err(a, want)
                                             / want.abs().max().item())
                             del want
@@ -2633,6 +2667,7 @@ def main() -> int:
     from repro_torch.timing import CycleConfig
     from repro_torch.models import Transformer, init_params, model_struct
     from repro_torch.models import layers as layers_mod
+    from repro_torch.models import mla as mla_mod
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import recurrent
     from repro_torch.models import transformer as tm
@@ -2813,6 +2848,37 @@ def main() -> int:
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
         check(err <= tol, f"{name}: max abs err {err} > {tol}")
         del q, k, v, got, want
+
+    # K3's (192, 128) build as latent attention hands it over
+    # (moonlight-16b-a3b at 1 x 8192): q/k and v/o head dims apart, v a
+    # view of the expansion.  Two wrong kernels the tolerance must fail:
+    # the scale taken from v's head dim, and v read from k's nope half.
+    mlcfg = get_config("moonlight-16b-a3b")
+    q, k, v = latent_qkv(mlcfg, LATENT_S, gen, dev, Params, mla_mod._expand)
+    dqk, dv = q.shape[3], v.shape[3]
+    got = ops.flash_attention(q, k, v, causal=True)
+    bq, bk = fa.tiles(LATENT_S, LATENT_S, dqk, dtype=torch.bfloat16, hdv=dv)
+    want = fa.flash_attention_plain(q, k, v, causal=True, bq=bq, bk=bk)
+    wrong = {"scale_of_v": ops.flash_attention(
+                 (q.float() * (dqk / dv) ** 0.5).to(q.dtype), k, v,
+                 causal=True),
+             "v_from_k_nope": ops.flash_attention(q, k, k[..., :dv],
+                                                  causal=True)}
+    torch.cuda.synchronize()
+    err = errs["latent_bf16"] = max_err(got, want)
+    latent_wrong = {n: max_err(w, want) for n, w in wrong.items()}
+    tol = TOLERANCE[torch.bfloat16]
+    phase("kernel_check", kernel="flash_attention", case="latent_bf16",
+          shape=f"B1xS{LATENT_S}xH{mlcfg.n_heads}xK{mlcfg.n_heads}"
+                f"xhd{dqk}/{dv}", dtype="bfloat16", causal=True, window=0,
+          v_strides=v.stride(), tiles=f"{bq}x{bk}", max_abs_err=f"{err:.3e}",
+          tol=tol, wrong_kernels_max_abs_err={
+              n: f"{e:.3e}" for n, e in latent_wrong.items()})
+    check(bool(torch.isfinite(got).all()), "latent_bf16: non-finite output")
+    check(err <= tol, f"latent_bf16: max abs err {err} > {tol}")
+    check(min(latent_wrong.values()) > tol,
+          f"latent_bf16: a wrong kernel within the tolerance {latent_wrong}")
+    del q, k, v, got, want, wrong
 
     # K3 on a rank's own query rows [a, b) of S at q_offset a, over every
     # key: recurrentgemma-2b's local layer as rank 1 of 4 sees it
@@ -3316,6 +3382,26 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     f32_phase(arch, cfg, tokens)
+
+    # moonlight-16b-a3b whole at 1 x 8192: every layer's latent attention
+    # through K3's (192, 128) build, held layer by layer
+    arch = "moonlight-16b-a3b"
+    cfg = prefill_config(arch, attn_impl="flash")
+    ml_tokens = torch.randint(0, cfg.vocab_size, (1, LATENT_S),
+                              generator=gen, device=dev)
+    model, caches = prefill_phase(arch, cfg,
+                                  cfg.replace(attn_impl="reference"),
+                                  {"flash_attention": cfg.n_layers},
+                                  torch.bfloat16, toks=ml_tokens,
+                                  layerwise=True,
+                                  layers=f"{cfg.n_layers} of {cfg.n_layers}")
+    check(caches[1]["0"]["c_kv"].shape == (
+        cfg.n_layers - cfg.first_dense_layers, 1, LATENT_S,
+        cfg.kv_lora_rank) and caches[1]["0"]["k_pe"].shape[-1]
+        == cfg.qk_rope_head_dim and set(caches[1]["0"]) == {"c_kv", "k_pe"},
+        "moonlight prefill latent cache shape")
+    del model, caches
+    torch.cuda.empty_cache()
 
     arch = "mixtral-8x7b"
     full = prefill_config(arch, attn_impl="flash")
@@ -3987,6 +4073,34 @@ def main() -> int:
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": library_ms}
 
+    def latent_attention_times(S):
+        """K3's (192, 128) build at moonlight's shape (1 x S, causal), v a
+        view of the expansion; the bound from 2 (dqk + dv) FLOPs a live
+        pair a head, q and k read at dqk, v read and o written at dv."""
+        q, k, v = latent_qkv(mlcfg, S, gen, dev, Params, mla_mod._expand)
+        B, _, H, dqk = q.shape
+        dv = v.shape[3]
+        bq, bk = fa.tiles(S, S, dqk, dtype=torch.bfloat16, hdv=dv)
+        ms = cuda_time_ms(lambda: ops.flash_attention(q, k, v, causal=True),
+                          20)
+        plain_ms = cuda_time_ms(lambda: fa.flash_attention_plain(
+            q, k, v, causal=True, bq=bq, bk=bk), 1, warmup=0)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 20)
+        flops = 2 * (dqk + dv) * B * H * S * (S + 1) // 2
+        nbytes = (q.numel() + k.numel() + 2 * v.numel()) * q.element_size()
+        bound_ms, bound_by = bound(flops, nbytes, torch.bfloat16)
+        shape = f"B{B}xS{S}xH{H}xK{H}xhd{dqk}/{dv}"
+        phase("kernel_time", kernel="flash_attention", shape=shape,
+              dtype="bf16", window=0, ms=f"{ms:.4f}",
+              plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+              flops=flops, bytes=nbytes, bound_ms=f"{bound_ms:.4f}",
+              bound_by=bound_by, roofline_share=f"{bound_ms / ms:.4f}")
+        return {"shape": shape, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms}
+
     attn_llama = attention_times(PREFILL_B, PREFILL_S, *llama_attn, 0)
     attn_tp2 = attention_times(PREFILL_B, PREFILL_S, *llama_tp2_attn, 0)
     attn_rgemma = attention_times(PREFILL_B, PREFILL_S, *rgemma_attn,
@@ -4000,6 +4114,7 @@ def main() -> int:
                                          0)
     attn_gqa = {arch: attention_times(PREFILL_B, PREFILL_S, *attn, 0)
                 for arch, attn in gqa_attn.items()}
+    attn_latent = latent_attention_times(LATENT_S)
     attn_rows = {name: attention_times(B, S, H, K, hd, window, rows=rows)
                  for name, B, S, rows, H, K, hd, window, dtype in OFFSET_CASES
                  if dtype == torch.bfloat16}
@@ -4140,6 +4255,9 @@ def main() -> int:
                        **attn_swa},
          "hd320_global": {"max_abs_err": errs["gemma3_global_bf16"],
                           **attn_gemma3_global},
+         "latent_192x128": {"max_abs_err": errs["latent_bf16"],
+                            "wrong_kernels_max_abs_err": latent_wrong,
+                            **attn_latent},
          **{f"hd128_gqa{H // K}": {"max_abs_err": errs[f"{arch}_bf16"],
                                    **attn_gqa[arch]}
             for arch, (H, K, _) in gqa_attn.items()},

@@ -1,6 +1,9 @@
 """Architecture registry (port of ``repro.configs``): the 10 assigned
 configs + reduced smoke variants, and the per-arch input-shape cell map
-(which cells run / why skipped)."""
+(which cells run / why skipped).  ``ARCH_NAMES``, the shapes and the cells
+stay the JAX package's; the architectures only the port runs
+(``PORT_ARCH_NAMES``: moonlight-16b-a3b, latent attention) resolve through
+:func:`get_config` beside them."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -9,7 +12,7 @@ from repro_torch.models.base import ModelConfig
 
 from . import (deepseek_moe_16b, gemma3_4b, hubert_xlarge, internlm2_20b,
                internvl2_2b, llama3_2_1b, minitron_4b, mixtral_8x7b,
-               recurrentgemma_2b, rwkv6_3b)
+               moonlight_16b_a3b, recurrentgemma_2b, rwkv6_3b)
 
 _MODULES = {
     "hubert-xlarge": hubert_xlarge,
@@ -26,11 +29,18 @@ _MODULES = {
 
 ARCH_NAMES = tuple(_MODULES)
 
+# the port's own architectures: no JAX counterpart, so no shape cells
+_PORT_MODULES = {
+    "moonlight-16b-a3b": moonlight_16b_a3b,
+}
+
+PORT_ARCH_NAMES = tuple(_PORT_MODULES)
+
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
-    if name not in _MODULES:
+    mod = _MODULES.get(name) or _PORT_MODULES.get(name)
+    if mod is None:
         raise KeyError(f"unknown architecture {name!r}")
-    mod = _MODULES[name]
     return mod.SMOKE if smoke else mod.CONFIG
 
 

@@ -5,8 +5,12 @@
 // It computes softmax(q.k^T * hd^-0.5 under causal, window and kv_len) . v
 // with an online softmax whose m, l and acc stay in f32 across kv tiles.
 //
-// Layout: q, o are [B, Sq, H, hd] and k, v are [B, Sk, K, hd] (BSHD, GQA),
-// read through their strides; only the head dimension must be contiguous.
+// Layout: q is [B, Sq, H, hd], k [B, Sk, K, hd], v [B, Sk, K, hdv] and o
+// [B, Sq, H, hdv] (BSHD, GQA), read through their strides; only the head
+// dimension must be contiguous.  hdv is hd but in latent attention
+// (DeepSeek-V3, Moonlight: q and k at 128 + 64, v at 128), which has no
+// TPU kernel in the JAX package; padding v to 192 would waste a third of
+// P.v and of v's bytes, so v and o keep their own width.
 // q's row 0 sits at global position q_off (0 for whole rows; a rank's first
 // row when the sequence is split over ranks): the causal and window masks
 // and the kv-tile range compare q_off + row with the key's position, so a
@@ -23,7 +27,8 @@
 // Two kernels, one function:
 //
 // * bf16 at hd 64, 128, 256 and 320 (every config that reaches K3 causally)
-//   runs on the tensor cores: flash_attention_tc_kernel below.
+//   and at (hd, hdv) = (192, 128) runs on the tensor cores:
+//   flash_attention_tc_kernel below.
 // * f32 at every head dim, and bf16 at hd 8, 16 and 32 (no config reaches
 //   them; the tensor-core kernel's 16-byte rows and ldmatrix tiles want hd a
 //   multiple of 64), run on the CUDA cores: flash_attention_kernel.  f32 stays
@@ -109,13 +114,15 @@ __device__ __forceinline__ bool tile_full(int qs, int ks, int bq, int bk, int ca
 //   c of row r sits at chunk c ^ (r & 7) of its row (rows are a multiple of
 //   128 bytes), so the 8 rows one ldmatrix phase reads hit 8 distinct bank
 //   groups, transposed or not.
-// * Registers: the accumulator of 16 rows x hd f32 is hd/2 registers a
-//   thread (160 at hd 320), the q fragments hd/4 more.  Up to hd 128 the q
-//   fragments stay in registers for the whole kv loop; from hd 256 up they
-//   are read from shared memory with ldmatrix at each k step (that loop
-//   unrolled 4 deep: fully unrolled, its fragments in flight spill at hd
-//   320), and kv tiles are 32 keys, so S is 16 registers.  Shared memory:
-//   (64 + 4 * bk) * hd bf16, 120 KB at hd 320.
+// * Registers: the accumulator of 16 rows x hdv f32 is hdv/2 registers a
+//   thread (160 at hd 320), the q fragments hd/4 more.  While hd + hdv is
+//   at most 320 the q fragments stay in registers for the whole kv loop
+//   (228 registers at (192, 128), which ran 10% faster than reading them
+//   from shared memory at 168); above, they are read from shared memory
+//   with ldmatrix at each k step (that loop unrolled 4 deep: fully
+//   unrolled, its fragments in flight spill at hd 320).  kv tiles are 64 keys while hd + hdv is at most 320,
+//   else 32 (S is then 16 registers).  Shared memory: (64 * hd + 2 * bk *
+//   (hd + hdv)) bf16, 120 KB at hd 320, 104 KB at (192, 128).
 // * Grid: (H, B, q tiles) with the q tile taken from the top down, so that
 //   the longest causal rows start first (the block scheduler walks x
 //   fastest and z slowest).
@@ -128,10 +135,10 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 typedef __nv_bfloat16 bf16;
 
-__host__ __device__ constexpr int block_k(int hd) { return hd <= 128 ? 64 : 32; }
+__host__ __device__ constexpr int block_k(int hd, int hdv) { return hd + hdv <= 320 ? 64 : 32; }
 
-__host__ __device__ constexpr size_t smem_bytes(int hd) {
-  return size_t(BQ + 4 * block_k(hd)) * hd * sizeof(bf16);
+__host__ __device__ constexpr size_t smem_bytes(int hd, int hdv) {
+  return size_t(BQ * hd + 2 * block_k(hd, hdv) * (hd + hdv)) * sizeof(bf16);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
@@ -187,20 +194,21 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * HD + ((c ^ (r & 7)) << 3);
 }
 
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(THREADS) flash_attention_tc_kernel(Params p) {
-  constexpr int BK = block_k(HD);
-  constexpr int CH = HD / 8;        // 16-byte chunks per row
+  constexpr int BK = block_k(HD, HDV);
+  constexpr int CH = HD / 8;        // 16-byte chunks per q or k row
+  constexpr int CHV = HDV / 8;      // 16-byte chunks per v row
   constexpr int NT = BK / 8;        // n8 key tiles of S
-  constexpr int DT = HD / 8;        // n8 head-dim tiles of O
+  constexpr int DT = HDV / 8;       // n8 head-dim tiles of O
   constexpr int KS = HD / 16;       // k16 steps of q.k^T
-  constexpr bool Q_IN_REGS = HD <= 128;
-  static_assert(HD % 64 == 0 && BK % 16 == 0, "tile shapes");
+  constexpr bool Q_IN_REGS = HD + HDV <= 320;
+  static_assert(HD % 64 == 0 && HDV % 64 == 0 && BK % 16 == 0, "tile shapes");
 
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sq = reinterpret_cast<bf16*>(smem);   // [BQ][HD]
   bf16* sk = sq + BQ * HD;                     // [2][BK][HD]
-  bf16* sv = sk + 2 * BK * HD;                 // [2][BK][HD]
+  bf16* sv = sk + 2 * BK * HD;                 // [2][BK][HDV]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
@@ -224,14 +232,27 @@ __global__ void __launch_bounds__(THREADS) flash_attention_tc_kernel(Params p) {
     const int ks = j * p.bk;
     const int n = min(p.bk, p.Sk - ks);
     bf16* dk = sk + stage * BK * HD;
-    bf16* dv = sv + stage * BK * HD;
-    for (int i = tid; i < BK * CH; i += THREADS) {
-      const int r = i / CH, c = i % CH;
-      const bool ok = r < n;
-      const int64_t row = ok ? ks + r : 0;
-      const int off = swz<HD>(r, c);
-      cp_async_16(smem_u32(dk + off), kg + row * p.k_ss + c * 8, ok);
-      cp_async_16(smem_u32(dv + off), vg + row * p.v_ss + c * 8, ok);
+    bf16* dv = sv + stage * BK * HDV;
+    if constexpr (HD == HDV) {
+      for (int i = tid; i < BK * CH; i += THREADS) {
+        const int r = i / CH, c = i % CH;
+        const bool ok = r < n;
+        const int64_t row = ok ? ks + r : 0;
+        const int off = swz<HD>(r, c);
+        cp_async_16(smem_u32(dk + off), kg + row * p.k_ss + c * 8, ok);
+        cp_async_16(smem_u32(dv + off), vg + row * p.v_ss + c * 8, ok);
+      }
+    } else {
+      for (int i = tid; i < BK * CH; i += THREADS) {
+        const int r = i / CH, c = i % CH;
+        const bool ok = r < n;
+        cp_async_16(smem_u32(dk + swz<HD>(r, c)), kg + int64_t(ok ? ks + r : 0) * p.k_ss + c * 8, ok);
+      }
+      for (int i = tid; i < BK * CHV; i += THREADS) {
+        const int r = i / CHV, c = i % CHV;
+        const bool ok = r < n;
+        cp_async_16(smem_u32(dv + swz<HDV>(r, c)), vg + int64_t(ok ? ks + r : 0) * p.v_ss + c * 8, ok);
+      }
     }
   };
 
@@ -274,7 +295,7 @@ __global__ void __launch_bounds__(THREADS) flash_attention_tc_kernel(Params p) {
     cp_async_wait<1>();             // tile j is in
     __syncthreads();
     const bf16* tk = sk + stage * BK * HD;
-    const bf16* tv = sv + stage * BK * HD;
+    const bf16* tv = sv + stage * BK * HDV;
 
     float s[NT][4];
 #pragma unroll
@@ -391,7 +412,7 @@ __global__ void __launch_bounds__(THREADS) flash_attention_tc_kernel(Params p) {
 #pragma unroll
       for (int dp = 0; dp < DT / 2; ++dp) {
         uint32_t vb[4];
-        ldsm_x4_trans(smem_u32(tv + swz<HD>(kk * 16 + a_row, 2 * dp + a_chk)), vb);
+        ldsm_x4_trans(smem_u32(tv + swz<HDV>(kk * 16 + a_row, 2 * dp + a_chk)), vb);
         mma(o[2 * dp], a, vb[0], vb[1]);
         mma(o[2 * dp + 1], a, vb[2], vb[3]);
       }
@@ -421,18 +442,18 @@ __global__ void __launch_bounds__(THREADS) flash_attention_tc_kernel(Params p) {
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  if (p.bq > BQ || p.bk > block_k(HD)) return cudaErrorInvalidValue;
-  constexpr size_t smem = smem_bytes(HD);
+  if (p.bq > BQ || p.bk > block_k(HD, HDV)) return cudaErrorInvalidValue;
+  constexpr size_t smem = smem_bytes(HD, HDV);
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(flash_attention_tc_kernel<HD>,
+    cudaError_t err = cudaFuncSetAttribute(flash_attention_tc_kernel<HD, HDV>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            int(smem));
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(p.H, p.B, (p.Sq + p.bq - 1) / p.bq);
-  flash_attention_tc_kernel<HD><<<grid, THREADS, smem, stream>>>(p);
+  flash_attention_tc_kernel<HD, HDV><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -619,16 +640,18 @@ cudaError_t dispatch_f32(const Params& p, int hd, cudaStream_t stream) {
   }
 }
 
-cudaError_t dispatch_bf16(const Params& p, int hd, cudaStream_t stream) {
+cudaError_t dispatch_bf16(const Params& p, int hd, int hdv, cudaStream_t stream) {
   typedef __nv_bfloat16 bf16;
+  if (hd != hdv)
+    return hd == 192 && hdv == 128 ? tc::launch<192, 128>(p, stream) : cudaErrorInvalidValue;
   switch (hd) {
     case 8: return launch<bf16, 8>(p, stream);
     case 16: return launch<bf16, 16>(p, stream);
     case 32: return launch<bf16, 32>(p, stream);
-    case 64: return tc::launch<64>(p, stream);
-    case 128: return tc::launch<128>(p, stream);
-    case 256: return tc::launch<256>(p, stream);
-    case 320: return tc::launch<320>(p, stream);
+    case 64: return tc::launch<64, 64>(p, stream);
+    case 128: return tc::launch<128, 128>(p, stream);
+    case 256: return tc::launch<256, 256>(p, stream);
+    case 320: return tc::launch<320, 320>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -637,11 +660,12 @@ cudaError_t dispatch_bf16(const Params& p, int hd, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  q_off: the global position of q's row
-// 0 (keys are at 0 .. Sk-1).  Returns cudaGetLastError() after the launch
-// (0 on success); the caller raises on anything else.
+// dtype: 0 = float32, 1 = bfloat16.  hd: q's and k's head dim (the scale
+// is hd^-0.5); hdv: v's and o's.  q_off: the global position of q's row 0
+// (keys are at 0 .. Sk-1).  Returns cudaGetLastError() after the launch (0
+// on success); the caller raises on anything else.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype,
-                        int B, int Sq, int Sk, int H, int K, int hd,
+                        int B, int Sq, int Sk, int H, int K, int hd, int hdv,
                         int64_t q_sb, int64_t q_ss, int64_t q_sh,
                         int64_t k_sb, int64_t k_ss, int64_t k_sh,
                         int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -654,8 +678,8 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, in
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
            causal, window, bq, bk, q_off, float(1.0 / std::sqrt(double(hd)))};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0 ? dispatch_f32(p, hd, s)
-                  : dtype == 1 ? dispatch_bf16(p, hd, s)
+  cudaError_t err = dtype == 0 ? (hd == hdv ? dispatch_f32(p, hd, s) : cudaErrorInvalidValue)
+                  : dtype == 1 ? dispatch_bf16(p, hd, hdv, s)
                                : cudaErrorInvalidValue;
   return int(err);
 }

@@ -36,13 +36,14 @@ def _no_autograd(name: str, *tensors) -> None:
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     bq: int | None = None, bk: int | None = None,
                     q_offset: int = 0):
-    """q: [B, Sq, H, hd]; k, v: [B, Sk, K, hd] (GQA).  Returns [B, Sq, H,
-    hd].  q's rows sit at global positions q_offset .. (a rank's own rows
-    of a split sequence; keys at 0 .. Sk-1).  Tiles default to the
-    kernel's for this dtype and head dim (:func:`_fa.tiles`)."""
+    """q: [B, Sq, H, hd]; k: [B, Sk, K, hd] (GQA); v: [B, Sk, K, hdv]
+    (hdv is hd but in latent attention).  Returns [B, Sq, H, hdv].  q's
+    rows sit at global positions q_offset .. (a rank's own rows of a split
+    sequence; keys at 0 .. Sk-1).  Tiles default to the kernel's for this
+    dtype and these head dims (:func:`_fa.tiles`)."""
     _no_autograd("flash_attention", q, k, v)
     bq, bk = _fa.tiles(q.shape[1], k.shape[1], q.shape[3], bq, bk,
-                        dtype=q.dtype)
+                        dtype=q.dtype, hdv=v.shape[3])
     if q.device.type == "cpu":
         return _fa.flash_attention_plain(q, k, v, causal=causal, window=window,
                                          bq=bq, bk=bk, q_offset=q_offset)

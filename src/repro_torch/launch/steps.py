@@ -92,7 +92,8 @@ def prefill_config(arch: str, *, smoke: bool = False,
 
 def prefill(params: Transformer, cfg: ModelConfig, batch: dict):
     """Returns (logits [B, S, V], per-segment stacked caches: k/v for
-    attention layers, conv/h for RG-LRU, tm_shift/wkv/cm_shift for RWKV).
+    attention layers, c_kv/k_pe for latent attention, conv/h for RG-LRU,
+    tm_shift/wkv/cm_shift for RWKV).
     On a mesh ``batch`` is this rank's rows and both come back as
     DTensors (see :func:`~repro_torch.models.transformer.forward`)."""
     with tracing.span("prefill"), torch.inference_mode():

@@ -166,16 +166,20 @@ def param_count(struct) -> int:
 
 # layer kinds used in layer plans
 GLOBAL, LOCAL, SWA, RECURRENT, RWKV = "global", "local", "swa", "recurrent", "rwkv"
+# multi-head latent attention (DeepSeek-V2/V3): the port's own kind
+MLA = "mla"
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     """Field for field the JAX package's ``ModelConfig``, so configs compare
-    equal.  The sharded model reads the sharding knobs (``batch_axes``,
-    ``act_shard``, ``score_shard``, ``kv_shard``); ``tp_impl``'s two
-    values are one path here (``models/shardmap_tp.py``), and the dry-run
-    knobs (``rwkv_unroll``, ``scan_layers``) are read by nothing in this
-    port."""
+    equal, and after them the fields of what only the port runs (latent
+    attention, the sigmoid router), whose defaults leave every JAX
+    architecture as it is.  The sharded model reads the sharding knobs
+    (``batch_axes``, ``act_shard``, ``score_shard``, ``kv_shard``);
+    ``tp_impl``'s two values are one path here (``models/shardmap_tp.py``),
+    and the dry-run knobs (``rwkv_unroll``, ``scan_layers``) are read by
+    nothing in this port."""
     name: str
     family: str                   # dense | moe | hybrid | rwkv | encoder | vlm
     n_layers: int
@@ -221,6 +225,19 @@ class ModelConfig:
     batch_axes: tuple = ()
     remat: str = "none"
     scan_layers: bool = True
+    # port only: multi-head latent attention (``MLA`` layers), DeepSeek-V3's
+    # kv_lora_rank, qk_nope_head_dim, qk_rope_head_dim, v_head_dim and the
+    # latent's RMSNorm epsilon
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    kv_norm_eps: float = 1e-6
+    # port only: the MoE router's scoring ("softmax", or "sigmoid" with a
+    # correction bias ``e_bias`` that only chooses) and the scale of the
+    # sigmoid gates
+    router_score: str = "softmax"
+    routed_scale: float = 1.0
 
     @property
     def hd(self) -> int:
@@ -253,6 +270,15 @@ class ModelConfig:
         if self.n_heads % self.n_kv_heads:
             raise ValueError(f"{self.name}: n_heads {self.n_heads} is not a "
                              f"multiple of n_kv_heads {self.n_kv_heads}")
+        if MLA in self.kinds and min(self.kv_lora_rank, self.qk_nope_head_dim,
+                                     self.qk_rope_head_dim,
+                                     self.v_head_dim) <= 0:
+            raise ValueError(f"{self.name}: an {MLA!r} layer needs "
+                             "kv_lora_rank and the nope, rope and v head "
+                             "dims")
+        if self.router_score not in ("softmax", "sigmoid"):
+            raise ValueError(f"{self.name}: router_score "
+                             f"{self.router_score!r}")
         return self
 
     def replace(self, **kw) -> "ModelConfig":

@@ -216,8 +216,9 @@ def _chunked_sdpa(q, k, v, *, cfg: ModelConfig, window: int, causal: bool,
 
 def _attend(q, k, v, *, cfg: ModelConfig, window: int, positions,
             q_positions=None, chunked_ok: bool = True):
-    """Prefill attention of q [B, Sq, H, hd] over k/v [B, S, K, hd]:
-    K3 (``attn_impl="flash"``, causal), the chunked schedule
+    """Prefill attention of q [B, Sq, H, hd] over k [B, S, K, hd] and v
+    [B, S, K, hdv] (hdv is hd but in latent attention), scaled by
+    hd ** -0.5: K3 (``attn_impl="flash"``, causal), the chunked schedule
     (``"chunked"``, when ``chunked_ok``) or the dense reference.
     ``q_positions`` (a rank's own query rows, contiguous) defaults to
     ``positions``; K3 takes their first position as its query-row offset."""
@@ -240,7 +241,7 @@ def _attend(q, k, v, *, cfg: ModelConfig, window: int, positions,
     pos1 = positions if positions.dim() == 1 else positions[0]
     qpos = pos1 if whole else q_positions
     mask = attn_mask(qpos, pos1, causal=cfg.causal, window=window)
-    return _sdpa(q, k, v, mask, scale=cfg.hd ** -0.5, cfg=cfg)
+    return _sdpa(q, k, v, mask, scale=q.shape[-1] ** -0.5, cfg=cfg)
 
 
 def _gqa_block(H: int, K: int, tp: int, r: int) -> tuple[int, int]:

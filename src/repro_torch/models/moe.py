@@ -19,7 +19,9 @@ rows, so ``shard_g``'s layout holds by construction: each rank routes its
 rows' every position, runs its experts (expert-parallel on 'model' when
 they divide, else its ff columns of every expert), and the partial sums
 meet in ``shard_act``.  Supports Mixtral-style top-k over E experts and
-DeepSeek-style shared + fine-grained routed experts.
+DeepSeek-style shared + fine-grained routed experts, routed by a softmax
+or (DeepSeek-V3, the port's own) by sigmoid scores with a correction bias
+that chooses the experts and never weights them.
 """
 from __future__ import annotations
 
@@ -47,6 +49,9 @@ def moe_struct(cfg: ModelConfig):
     if cfg.n_shared_experts:
         s["shared"] = mlp_struct(d, (cfg.moe_d_ff or cfg.d_ff)
                                  * cfg.n_shared_experts)
+    if cfg.router_score == "sigmoid":
+        # DeepSeek-V3's e_score_correction_bias
+        s["e_bias"] = P((E,), ("experts",), init="zeros")
     return s
 
 
@@ -144,13 +149,34 @@ def _combine(ex_out, slots: Slots):
 
 
 def route(params, xg, cfg: ModelConfig, lay=None):
-    """Router softmax and top-k of groups xg [G, T, d]: returns (gates_all
-    [G, T, E] f32, gates [G, T, k] renormalized, eidx [G, T, k])."""
-    logits = (xg @ _w(params, "router", lay, model=True).to(xg.dtype)).float()
-    gates_all = torch.softmax(logits, dim=-1)
-    gates, eidx = _top_k(gates_all, cfg.experts_per_token)
-    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
-    return gates_all, gates, eidx
+    """Router scores and top-k of groups xg [G, T, d]: returns (gates_all
+    [G, T, E] f32, gates [G, T, k], eidx [G, T, k]).
+
+    ``router_score="softmax"``: the softmax of the logits, its top k
+    renormalized to 1.  ``"sigmoid"`` (DeepSeek-V3's ``noaux_tc`` with one
+    expert group): the sigmoid of logits taken in f32; the experts are the
+    top k of score + ``e_bias``, the gates their unbiased scores over
+    their sum (+ 1e-20) times ``routed_scale``.  Counting, it adds to
+    ``moe.bias_moved`` the slots whose expert the bias changed: k less the
+    size of the biased and unbiased top k's intersection, a token."""
+    k = cfg.experts_per_token
+    if cfg.router_score == "softmax":
+        logits = (xg @ _w(params, "router", lay,
+                          model=True).to(xg.dtype)).float()
+        gates_all = torch.softmax(logits, dim=-1)
+        gates, eidx = _top_k(gates_all, k)
+        gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+        return gates_all, gates, eidx
+    w = _w(params, "router", lay, model=True)
+    scores = torch.sigmoid(xg.float() @ w.float())
+    _, eidx = _top_k(scores + _w(params, "e_bias", lay).float(), k)
+    gates = scores.gather(-1, eidx)
+    gates = gates / (gates.sum(-1, keepdim=True) + 1e-20) * cfg.routed_scale
+    if tracing.counting():
+        plain = _top_k(scores, k)[1]
+        kept = (eidx[..., :, None] == plain[..., None, :]).sum()
+        tracing.count("moe.bias_moved", eidx.numel() - kept)
+    return scores, gates, eidx
 
 
 def dispatch(params, x, cfg: ModelConfig, lay=None):

@@ -9,7 +9,8 @@ layer (a view of its slice, not a copy), and the Python loop over layers
 takes the place of ``lax.scan``.  Dense GLOBAL / LOCAL / SWA, RECURRENT
 (RG-LRU) and RWKV-6 layers are ported, each with a dense or (in an ``moe``
 segment) a mixture-of-experts FFN, behind a token embedding or an audio or
-vision frontend stub.
+vision frontend stub; MLA (latent attention, :mod:`.mla`) is the port's
+own kind, on one device only.
 
 A param tree of DTensors (a sharded model: ``init_params(mesh=, specs=)``,
 as ``launch/train.py``'s ``build_train_state(mesh=)`` draws it) makes a
@@ -32,12 +33,13 @@ from repro_torch import tracing
 from repro_torch.sharding import comm
 from repro_torch.sharding.layout import Layout, fetch, mark, seq_rows
 
-from .base import (GLOBAL, RECURRENT, RWKV, ModelConfig, P, Params,
+from .base import (GLOBAL, MLA, RECURRENT, RWKV, ModelConfig, P, Params,
                    tree_leaves, tree_map)
 from .layers import (attention, attention_cache_struct, attention_struct,
                      cross_entropy, cross_entropy_tp, embed, embed_struct,
                      head_struct, lm_logits, lookup, mlp, mlp_struct,
                      rmsnorm, rmsnorm_struct, vocab_sharded)
+from .mla import mla, mla_cache_struct, mla_struct
 from .moe import moe, moe_struct
 from .recurrent import (rglru, rglru_state_struct, rglru_struct,
                         rwkv6_channel_mix, rwkv6_state_struct, rwkv6_struct,
@@ -86,6 +88,7 @@ def _layer_struct(cfg: ModelConfig, kind: str, is_moe: bool):
         return {"ln1": rmsnorm_struct(d), "tm": s["tm"],
                 "ln2": rmsnorm_struct(d), "cm": s["cm"]}
     core = ({"rglru": rglru_struct(cfg)} if kind == RECURRENT
+            else {"mla": mla_struct(cfg)} if kind == MLA
             else {"attn": attention_struct(cfg)})
     ffn = moe_struct(cfg) if is_moe else mlp_struct(d, cfg.d_ff)
     return {"ln1": rmsnorm_struct(d), **core,
@@ -119,6 +122,9 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int, *,
                 per_pos[str(j)] = rwkv6_state_struct(cfg, batch, tp_layout)
             elif kind == RECURRENT:
                 per_pos[str(j)] = rglru_state_struct(cfg, batch)
+            elif kind == MLA:
+                # the latents c_kv and k_pe of every position
+                per_pos[str(j)] = mla_cache_struct(cfg, batch, max_len)
             else:
                 # local/swa layers only need a window-sized cache
                 n = max_len if kind == GLOBAL else min(
@@ -325,6 +331,10 @@ def _apply_layer(lp, x, *, cfg: ModelConfig, kind: str, is_moe: bool,
         with tracing.span("rglru"):
             out, new_cache = rglru(lp.rglru, h, cfg=cfg, state=cache,
                                    lay=lay)
+    elif kind == MLA:
+        with tracing.span("mla"):
+            out, new_cache = mla(lp.mla, h, cfg=cfg, positions=positions,
+                                 cache=cache, cache_pos=cache_pos, lay=lay)
     else:
         with tracing.span("attention"):
             out, new_cache = attention(lp.attn, h, cfg=cfg, kind=kind,

@@ -31,10 +31,11 @@ from typing import NamedTuple
 import torch
 
 # every span the program opens, in the order of the layers they wrap
-SPANS = ("prefill", "embed", "attention", "mlp", "moe", "moe.route",
-         "moe.dispatch", "moe.experts", "moe.combine", "moe.shared", "rglru",
-         "time_mix", "channel_mix", "cache_stack", "head")
-COUNTERS = ("moe.slots", "moe.dropped")
+SPANS = ("prefill", "embed", "attention", "mla", "mla.q", "mla.kv",
+         "mla.attend", "mla.out", "mlp", "moe", "moe.route", "moe.dispatch",
+         "moe.experts", "moe.combine", "moe.shared", "rglru", "time_mix",
+         "channel_mix", "cache_stack", "head")
+COUNTERS = ("moe.slots", "moe.dropped", "moe.bias_moved")
 
 _NULL = contextlib.nullcontext()
 _spans = None       # the Recorder that takes spans, or None: off

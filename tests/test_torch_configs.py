@@ -32,6 +32,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import steps as tsteps
 from repro_torch.models.convert import params_from_jax
+from tests.config_parity import assert_config_equal_jax
 
 TOL = 2e-4
 B, S = 2, 16
@@ -66,7 +67,7 @@ def _batches(cfg, tcfg, step=0):
 def test_config_and_param_count_equal_jax(arch, smoke):
     jcfg = jconfigs.get_config(arch, smoke=smoke)
     tcfg = tconfigs.get_config(arch, smoke=smoke)
-    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert_config_equal_jax(tcfg, jcfg)
     for prop in ("hd", "padded_vocab", "kinds", "layers_in_plan",
                  "is_decoder"):
         assert getattr(tcfg, prop) == getattr(jcfg, prop)
@@ -87,6 +88,11 @@ def test_registry_and_cells_equal_jax():
     assert len(tconfigs.run_cells()) + len(tconfigs.skipped_cells()) == 40
     with pytest.raises(KeyError, match="unknown architecture"):
         tconfigs.get_config("gpt-2")
+    # the port's own architectures resolve beside the registry, outside it
+    assert tconfigs.PORT_ARCH_NAMES == ("moonlight-16b-a3b",)
+    assert not set(tconfigs.PORT_ARCH_NAMES) & set(jconfigs.ARCH_NAMES)
+    for arch in tconfigs.PORT_ARCH_NAMES:
+        assert tconfigs.get_config(arch).name == arch
 
 
 @pytest.mark.parametrize("attn_impl", ["reference", "flash"])

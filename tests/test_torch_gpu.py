@@ -29,7 +29,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import rwkv6_scan as rw
-from repro_torch.launch.steps import prefill
+from repro_torch.launch.steps import prefill, prefill_config
 from repro_torch.models import Transformer, forward, init_params, model_struct
 from repro_torch.models import recurrent
 from repro_torch.models.base import tree_leaves, tree_map
@@ -107,6 +107,59 @@ def test_cuda_kernel_matches_plain(cuda, B, S, H, Kh, hd, causal, window,
                                     bq=bq, bk=bk)
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,Kh,rows,v_view", [
+    (2, 600, 16, 16, None, False),       # Moonlight's 16 heads
+    (1, 1000, 16, 16, None, True),       # v a view of [k_nope | v], as MLA
+    (1, 333, 8, 2, None, False),         # GQA, ragged
+    (1, 512, 16, 16, (100, 300), True),  # a block of rows, off the q tile
+])
+def test_cuda_kernel_at_latent_head_dims_matches_plain(cuda, B, S, H, Kh,
+                                                       rows, v_view):
+    """K3's (192, 128) build: q and k at 192, v and o at 128, bf16."""
+    rng = np.random.default_rng(S)
+
+    def draw(n, hd):
+        return torch.from_numpy(rng.standard_normal((B, S, n, hd)).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+
+    q, k = draw(H, 192), draw(Kh, 192)
+    v = draw(Kh, 256)[..., 128:] if v_view else draw(Kh, 128)
+    a, b = rows or (0, S)
+    before = ops.flash_attention.launches
+    out = ops.flash_attention(q[:, a:b], k, v, causal=True, q_offset=a)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert out.shape == (B, b - a, H, 128)
+    bq, bk = fa.tiles(b - a, S, 192, dtype=torch.bfloat16, hdv=128)
+    want = fa.flash_attention_plain(q[:, a:b], k, v, causal=True, window=0,
+                                    bq=bq, bk=bk, q_offset=a)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_moonlight_prefill_takes_k3_in_every_layer(cuda):
+    """Moonlight-16B-A3B at its published widths, cut to 2 layers (the
+    dense one and one MoE layer), bf16: one K3 launch a layer, and the
+    cache holds the latents only."""
+    from repro_torch.models import MLA, uniform_plan
+    cfg = prefill_config("moonlight-16b-a3b", attn_impl="flash").replace(
+        n_layers=2, layer_plan=uniform_plan(MLA, 2))
+    params = init_params(model_struct(cfg),
+                         torch.Generator(cuda).manual_seed(0),
+                         dtype=torch.bfloat16, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (1, 1024), device=cuda)
+    before = ops.flash_attention.launches
+    logits, caches = prefill(Transformer(cfg, params), cfg,
+                             {"tokens": toks})
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 2
+    assert torch.isfinite(logits).all()
+    assert [{n: tuple(t.shape) for n, t in seg["0"].items()}
+            for seg in caches] == [{"c_kv": (1, 1, 1024, 512),
+                                    "k_pe": (1, 1, 1024, 64)}] * 2
 
 
 @pytest.mark.parametrize("S,rows,H,Kh,hd,window,dtype,tol", [

@@ -7,7 +7,6 @@ The weights are drawn by the JAX package and handed over as numpy arrays
 Tolerance 2e-4 is that of the JAX package's own flash-vs-reference model
 test (``tests/test_kernels.py``).  The machine with the card has no JAX:
 there this module skips as a whole."""
-import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -29,6 +28,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import steps as tsteps
 from repro_torch.models.convert import params_from_jax, tensors_from_jax
+from tests.config_parity import assert_config_equal_jax
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 2e-4
@@ -97,7 +97,7 @@ def test_port_imports_neither_jax_nor_repro():
 def test_config_and_param_count_equal_jax(smoke):
     jcfg = jconfigs.get_config("llama3.2-1b", smoke=smoke)
     tcfg = tconfigs.get_config("llama3.2-1b", smoke=smoke)
-    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert_config_equal_jax(tcfg, jcfg)
     for prop in ("hd", "padded_vocab", "kinds", "layers_in_plan"):
         assert getattr(tcfg, prop) == getattr(jcfg, prop)
     assert tmodels.param_count(tmodels.model_struct(tcfg)) \

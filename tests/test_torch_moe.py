@@ -10,7 +10,6 @@ The weights are drawn by the JAX package and handed over as numpy arrays
 tolerance 2e-4 is that of the JAX package's own flash-vs-reference model
 test (``tests/test_kernels.py``).  The machine with the card has no JAX:
 there this module skips as a whole."""
-import dataclasses
 from collections import Counter
 
 import numpy as np
@@ -31,6 +30,7 @@ from repro_torch.launch import steps as tsteps
 from repro_torch.models import moe as tmoe
 from repro_torch.models.base import Params
 from repro_torch.models.convert import params_from_jax, tensors_from_jax
+from tests.config_parity import assert_config_equal_jax
 from tests.test_torch_tracing import Ops
 
 TOL = 2e-4
@@ -294,7 +294,7 @@ def test_serve_emits_jax_tokens():
 def test_config_and_param_count_equal_jax(arch, smoke):
     jcfg = jconfigs.get_config(arch, smoke=smoke)
     tcfg = tconfigs.get_config(arch, smoke=smoke)
-    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert_config_equal_jax(tcfg, jcfg)
     assert tmodels.param_count(tmodels.model_struct(tcfg)) \
         == jmodels.param_count(jmodels.model_struct(jcfg))
     full = {"mixtral-8x7b": 46_702_792_704,

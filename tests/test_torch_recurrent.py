@@ -11,7 +11,6 @@ JAX package and handed over as numpy arrays.  Tolerances: 1e-5 for K4 and
 flash-vs-reference model test.  bf16 layers are held at 2e-2, the JAX
 package's bf16 kernel tolerance: one bf16 rounding step near 1 is 7.8e-3.
 The machine with the card has no JAX: there this module skips as a whole."""
-import dataclasses
 
 import numpy as np
 import pytest
@@ -37,6 +36,7 @@ from repro_torch.launch import steps as tsteps
 from repro_torch.models import recurrent as trec
 from repro_torch.models.base import Params
 from repro_torch.models.convert import params_from_jax, tensors_from_jax
+from tests.config_parity import assert_config_equal_jax
 
 ARCHS = ("recurrentgemma-2b", "rwkv6-3b")
 FULL_PARAM_COUNT = {"recurrentgemma-2b": 2_894_481_920,
@@ -382,7 +382,7 @@ def _tokens(cfg, B, S, seed=0):
 def test_config_and_param_count_equal_jax(arch, smoke):
     jcfg = jconfigs.get_config(arch, smoke=smoke)
     tcfg = tconfigs.get_config(arch, smoke=smoke)
-    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert_config_equal_jax(tcfg, jcfg)
     for prop in ("hd", "padded_vocab", "kinds", "layers_in_plan"):
         assert getattr(tcfg, prop) == getattr(jcfg, prop)
     n = tmodels.param_count(tmodels.model_struct(tcfg))
